@@ -1,0 +1,5 @@
+from demovlp_tpu_torch.models.distilbert import DistilBertConfig, DistilBertModel
+from demovlp_tpu_torch.models.dual_encoder import ObjectRelation
+from demovlp_tpu_torch.models.object_transformer import ObjectTransformer
+
+__all__ = ["DistilBertConfig", "DistilBertModel", "ObjectRelation", "ObjectTransformer"]

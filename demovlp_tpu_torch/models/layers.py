@@ -1,0 +1,89 @@
+"""Shared model layers (counterpart of demovlp_tpu/models/layers.py:
+`LayerNormFp32`, `Mlp`, `trunc_normal_init`), plus `Dense`, the Linear
+that computes in the model's compute dtype.
+
+Parameters always stay float32, as in the JAX package (param_dtype f32);
+a bf16 model casts weights and inputs to bf16 at each product.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Dense(nn.Linear):
+    """nn.Linear whose product runs in `compute_dtype` (flax Dense(dtype=...))."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(cd)
+        return F.linear(x.to(cd), self.weight.to(cd), b)
+
+
+class LayerNormFp32(nn.LayerNorm):
+    """LayerNorm with f32 statistics and f32 params under any compute dtype;
+    the result is cast back to the input dtype. Region-tower eps is 1e-6."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """Dense -> exact GELU -> Dense (dropout is off when serving)."""
+
+    def __init__(self, dim: int, hidden_dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Dense(dim, hidden_dim, compute_dtype=compute_dtype)
+        self.fc2 = Dense(hidden_dim, dim, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """Normal(0, std) truncated to [-2 std, 2 std], as flax's
+    truncated_normal(stddev=std, lower=-2, upper=2) draws it."""
+    with torch.no_grad():
+        t.normal_(0.0, 1.0, generator=generator)
+        while True:
+            bad = t.abs() > 2.0
+            if not bad.any():
+                break
+            t[bad] = torch.randn(int(bad.sum()), generator=generator,
+                                 dtype=t.dtype, device=t.device)
+        return t.mul_(std)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random init in the spirit of the JAX package's initialisers:
+    lecun-normal Linear kernels (std 1/sqrt(fan_in), truncated), zero
+    biases, unit LayerNorms, embeddings N(0, 1/dim). Parameters the model
+    names itself (cls token, position embeds) are set by the model."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            # flax lecun_normal: truncated normal rescaled to unit variance
+            trunc_normal_(mod.weight, 1.0 / math.sqrt(mod.in_features) / 0.87962566,
+                          generator)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            with torch.no_grad():
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.embedding_dim),
+                                   generator=generator)
