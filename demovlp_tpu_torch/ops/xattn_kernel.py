@@ -88,7 +88,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         # pointers and the stream as c_void_p: a bare Python int would be
         # passed as a 32-bit int and cut the pointer
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -96,8 +96,9 @@ def _library() -> ctypes.CDLL:
 
 
 def smem_bytes(ls: int, lq: int) -> int:
-    """Shared memory one kernel block needs (mirrors the launcher's count)."""
-    return 4 * (lq * ls + 2 * 16 * 65 + 4 * lq + 2 * ls)
+    """Shared memory one kernel block needs (mirrors the launcher's count:
+    two staged 16-deep operand chunks, the score tile, three row vectors)."""
+    return 4 * (16 * (68 + 132) + lq * ls + 2 * lq + ls)
 
 
 def _launch(context, query, ctx_mask, lam: float, focal_equal: bool):
@@ -117,8 +118,8 @@ def _launch(context, query, ctx_mask, lam: float, focal_equal: bool):
             f"shape mismatch: context {tuple(context.shape)}, query "
             f"{tuple(query.shape)}, ctx_mask {tuple(ctx_mask.shape)}"
         )
-    if min(ls, lq, d) < 1:
-        raise ValueError("Ls, Lq and D must be positive")
+    if min(ls, lq, d) < 1 or d % 4:
+        raise ValueError(f"Ls, Lq and D must be positive and D a multiple of 4: {ls, lq, d}")
     if smem_bytes(ls, lq) > MAX_SMEM_BYTES:
         raise ValueError(f"Lq*Ls = {lq}*{ls} does not fit one block's shared memory")
     if bc * bq >= 2**31:
@@ -127,12 +128,17 @@ def _launch(context, query, ctx_mask, lam: float, focal_equal: bool):
     if bc == 0 or bq == 0:
         return out
     lib = _library()
+    # scratch: the normalised rows and the query norms, written by the
+    # launcher's row-norm kernel before the main kernel reads them
+    cn = torch.empty_like(context)
+    qn = torch.empty_like(query)
+    q_norm = torch.empty((bq, lq), dtype=torch.float32, device=query.device)
     with torch.cuda.device(context.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.xattn_sim_fwd(
             context.data_ptr(), query.data_ptr(), ctx_mask.data_ptr(),
-            out.data_ptr(), bc, bq, ls, lq, d, float(lam), int(focal_equal),
-            stream,
+            out.data_ptr(), cn.data_ptr(), qn.data_ptr(), q_norm.data_ptr(),
+            bc, bq, ls, lq, d, float(lam), int(focal_equal), stream,
         )
     if err != 0:
         raise RuntimeError(f"xattn_sim_fwd launch failed: cudaError_t {err}")
