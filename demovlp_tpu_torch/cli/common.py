@@ -4,11 +4,10 @@ the serving path needs)."""
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
-from demovlp_tpu_torch.config import ConfigParser
 from demovlp_tpu_torch.convert.from_jax import load_reference_state_dict
 from demovlp_tpu_torch.data.loader import MultiDistTextObjectVideoDataLoader
 from demovlp_tpu_torch.data.tokenizer import build_tokenizer
@@ -17,7 +16,7 @@ from demovlp_tpu_torch.models import DistilBertConfig, ObjectRelation
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def compute_dtype(config: ConfigParser) -> torch.dtype:
+def compute_dtype(config: Dict[str, Any]) -> torch.dtype:
     precision = config.get("precision", {}) or {}
     if precision.get("norm", "float32") != "float32":
         raise NotImplementedError("precision.norm other than float32 is not ported")
@@ -27,7 +26,7 @@ def compute_dtype(config: ConfigParser) -> torch.dtype:
     return _DTYPES[name]
 
 
-def build_model(config: ConfigParser) -> ObjectRelation:
+def build_model(config: Dict[str, Any]) -> ObjectRelation:
     """The arch from its config section (ObjectRelation only), with the
     nested object_params/text_params flattened as the JAX package does."""
     arch = config["arch"]
@@ -36,8 +35,6 @@ def build_model(config: ConfigParser) -> ObjectRelation:
     args = arch.get("args", {})
     obj_p = args.get("object_params", {})
     txt_p = args.get("text_params", {})
-    if obj_p.get("attn_impl") == "pallas":
-        raise ValueError("object_params.attn_impl='pallas' was removed; use 'dense' or 'xla'")
     kwargs = dict(
         object_num=int(obj_p.get("object_num", 30)),
         num_frames=int(obj_p.get("num_frames", 4)),
@@ -55,7 +52,7 @@ def build_model(config: ConfigParser) -> ObjectRelation:
     return ObjectRelation(**kwargs)
 
 
-def build_serving_model(config: ConfigParser, device: torch.device,
+def build_serving_model(config: Dict[str, Any], device: torch.device,
                         weights: Optional[str] = None, seed: int = 0) -> ObjectRelation:
     """The model on `device`, in eval mode: weights from a reference-schema
     `.pth` when given (strict load), else seeded random init."""
@@ -67,12 +64,12 @@ def build_serving_model(config: ConfigParser, device: torch.device,
     return model.to(device).eval()
 
 
-def build_tokenizer_from_config(config: ConfigParser):
+def build_tokenizer_from_config(config: Dict[str, Any]):
     model_path = config["arch"].get("args", {}).get("text_params", {}).get("model", "")
     return build_tokenizer(model_path)
 
 
-def init_val_loaders(config: ConfigParser, split: str = "test") -> List:
+def init_val_loaders(config: Dict[str, Any], split: str = "test") -> List:
     """Eval loaders for every data_loader section, with the split swapped
     and shuffling off."""
     section = config["data_loader"]
@@ -88,7 +85,7 @@ def init_val_loaders(config: ConfigParser, split: str = "test") -> List:
     return loaders
 
 
-def local_score_args(config: ConfigParser) -> Dict:
+def local_score_args(config: Dict[str, Any]) -> Dict:
     """use_local / lambda_softmax / focal_type as the loss class reads them
     (GlobalLocalLoss defaults: use_local True, lambda 20.0, focal 'prob')."""
     loss = config.get("loss", {}) or {}

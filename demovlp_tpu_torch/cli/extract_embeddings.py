@@ -27,7 +27,7 @@ from demovlp_tpu_torch.cli.common import (build_serving_model,
                                           build_tokenizer_from_config,
                                           compute_dtype, init_val_loaders,
                                           local_score_args)
-from demovlp_tpu_torch.config import ConfigParser, build_argparser
+from demovlp_tpu_torch.config import build_argparser, read_config
 from demovlp_tpu_torch.device import resolve_device
 
 
@@ -47,7 +47,7 @@ def run(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     results, embed_s, sims_s} (sims/results None without --topk)."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
-    config = ConfigParser.from_args(args)
+    config = read_config(args.config)
     model = build_serving_model(config, device, args.resume, args.seed)
     tokenizer = build_tokenizer_from_config(config)
     loaders = init_val_loaders(config, split=args.split)
@@ -96,9 +96,5 @@ def run(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     return records
 
 
-def main() -> None:
-    run()
-
-
 if __name__ == "__main__":
-    main()
+    run()

@@ -1,16 +1,15 @@
 """Experiment config (cut-down counterpart of demovlp_tpu/config.py).
 
-Reads the repo's JSON experiment files (`configs/*.json`) as they are and
-parses the `-c/-r` command line. Unlike the JAX package it makes no run
-directories and writes no logs; `-r` names a reference-schema `.pth` of
-weights, not a trainer checkpoint directory.
+Reads the repo's JSON experiment files (`configs/*.json`) as they are, as
+plain dicts, and parses the `-c/-r` command line. Unlike the JAX package it
+makes no run directories and writes no logs; `-r` names a reference-schema
+`.pth` of weights, not a trainer checkpoint directory.
 """
 from __future__ import annotations
 
 import argparse
 import json
-from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 
 def build_argparser(description: str = "demovlp_tpu_torch") -> argparse.ArgumentParser:
@@ -24,27 +23,6 @@ def build_argparser(description: str = "demovlp_tpu_torch") -> argparse.Argument
     return p
 
 
-class ConfigParser:
-    """Read-only view of one JSON experiment config."""
-
-    def __init__(self, config: Dict[str, Any], resume: Optional[str] = None):
-        self._config = dict(config)
-        self.resume = Path(resume) if resume else None
-
-    @classmethod
-    def from_args(cls, args: argparse.Namespace) -> "ConfigParser":
-        with open(args.config) as f:
-            return cls(json.load(f), resume=args.resume)
-
-    def __getitem__(self, name: str):
-        return self._config[name]
-
-    def __contains__(self, name: str) -> bool:
-        return name in self._config
-
-    def get(self, name: str, default=None):
-        return self._config.get(name, default)
-
-    @property
-    def config(self) -> Dict[str, Any]:
-        return self._config
+def read_config(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)

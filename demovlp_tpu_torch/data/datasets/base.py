@@ -1,6 +1,7 @@
 """Region dataset base (cut-down copy of demovlp_tpu/data/datasets/base.py:
 the `get_item`/`_meta` mechanics the synthetic serving path calls). The
-npz/native region reader and frame sampling wait for a later slice."""
+npz/native region reader, frame sampling and the resampling of unreadable
+samples wait for a later slice."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -10,7 +11,6 @@ import numpy as np
 FEAT_DIM = 2048  # appearance features per region
 GEOM_DIM = 6  # normalised box geometry
 REGION_DIM = FEAT_DIM + GEOM_DIM
-_MAX_RETRIES = 20
 
 
 class RegionDataset:
@@ -24,7 +24,6 @@ class RegionDataset:
         self.segments = int(self.object_params.get("num_frames", 4))
         self.object_num = int(self.object_params.get("object_num", 20))
         self.seed = seed
-        self.resample_count = 0
         self._load_metadata()
 
     def _load_metadata(self):
@@ -34,14 +33,11 @@ class RegionDataset:
         raise NotImplementedError
 
     def _load_objects(self, index: int, rng: np.random.Generator):
-        """(object (F,K,2054), mask (F,K), lens) or None if unreadable."""
+        """(object (F,K,2054), mask (F,K), lens)."""
         raise NotImplementedError
 
     def _text(self, index: int, rng: np.random.Generator):
         raise NotImplementedError
-
-    def _extras(self, index: int) -> Dict[str, Any]:
-        return {}
 
     def __len__(self) -> int:
         return len(self.metadata)
@@ -60,23 +56,12 @@ class RegionDataset:
 
     def get_item(self, item: int, rng: np.random.Generator) -> Dict[str, Any]:
         item = item % len(self)
-        for _ in range(_MAX_RETRIES):
-            loaded = self._load_objects(item, rng)
-            if loaded is not None:
-                break
-            # reference behaviour: substitute a random other sample
-            self.resample_count += 1
-            item = int(rng.integers(0, len(self)))
-        else:
-            raise RuntimeError(f"{self.dataset_name}: no readable sample after {_MAX_RETRIES} tries")
-        obj, obj_mask, obj_len = loaded
+        obj, obj_mask, obj_len = self._load_objects(item, rng)
         text = self._text(item, rng)
-        data = {
+        return {
             "object": obj,
             "object_mask": obj_mask,
             "object_len": obj_len,
             "text": text,
             "meta": self._meta(item, text),
         }
-        data.update(self._extras(item))
-        return data

@@ -3,8 +3,6 @@ retrieval task). Each index yields a stable pseudo-random sample, bit-
 identical to the JAX package's for the same index and settings."""
 from __future__ import annotations
 
-from typing import Any, Dict
-
 import numpy as np
 
 from demovlp_tpu_torch.data.datasets.base import FEAT_DIM, REGION_DIM, RegionDataset
@@ -52,6 +50,3 @@ class SyntheticObjectSelect(RegionDataset):
 
     def _text(self, index: int, rng) -> str:
         return self._caption(index)
-
-    def _extras(self, index: int) -> Dict[str, Any]:
-        return {}

@@ -17,6 +17,8 @@ import numpy as np
 
 from demovlp_tpu_torch.data.datasets import dataset_object_loader
 
+_PREFETCH = 2  # batches assembled ahead of the consumer
+
 
 def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Stack per-sample dicts into a fixed-shape numpy batch."""
@@ -34,8 +36,7 @@ class RegionDataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, drop_last: bool = False, seed: int = 0,
-                 process_index: int = 0, process_count: int = 1,
-                 prefetch: int = 2):
+                 process_index: int = 0, process_count: int = 1):
         if shuffle or drop_last or (process_index, process_count) != (0, 1):
             raise NotImplementedError(
                 "only the unshuffled single-process eval loader is ported"
@@ -44,21 +45,20 @@ class RegionDataLoader:
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.seed = seed
-        self.epoch = 0
-        self.prefetch = prefetch
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
 
     def _fetch(self, idx: int) -> Dict[str, Any]:
-        rng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch, int(idx)]))
+        # (seed, epoch, index) as the JAX loader seeds it; eval is epoch 0
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, 0, int(idx)]))
         return self.dataset.get_item(int(idx), rng)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         n = len(self.dataset)
         batches = [np.arange(s, min(s + self.batch_size, n))
                    for s in range(0, n, self.batch_size)]
-        out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        out_q: queue.Queue = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
         sentinel = object()
 

@@ -5,6 +5,7 @@ card and no CPU request they raise: nothing falls back to the CPU silently.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def to_device(x: np.ndarray, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Host array -> tensor on `device`, cast on the host first when `dtype`
+    is given. To a card it goes through pinned memory without blocking, so
+    the upload overlaps the kernels already queued."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -30,8 +30,6 @@ class DistilBertConfig:
     n_heads: int = 12
     hidden_dim: int = 3072
     max_position_embeddings: int = 512
-    dropout: float = 0.1
-    attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
 
 

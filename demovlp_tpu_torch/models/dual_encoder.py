@@ -33,7 +33,7 @@ class ObjectRelation(nn.Module):
             Dense(text_config.dim, projection_dim, compute_dtype=compute_dtype),
         )
         self.object_model = ObjectTransformer(
-            input_dim=2054, region_nums=object_num, num_frames=num_frames,
+            region_nums=object_num, num_frames=num_frames,
             output_dim=projection_dim, time_module=time_module or None,
             embed_dim=object_embed_dim, depth=object_depth,
             num_heads=object_heads, attn_impl=attn_impl,

@@ -25,7 +25,9 @@ import torch.nn as nn
 from demovlp_tpu_torch.models.layers import Dense, LayerNormFp32, Mlp
 from demovlp_tpu_torch.ops.masking import additive_mask
 
-APPEARANCE_DIM = 2048
+APPEARANCE_DIM = 2048  # + 6-d box geometry = the 2054-d region feature
+GEOMETRY_DIM = 6
+MLP_RATIO = 4
 
 
 def _block_bias(mode: str, frames: int, patches: int, device) -> torch.Tensor:
@@ -50,16 +52,14 @@ def _attention(q, k, v, bias):
 class VarAttention(nn.Module):
     """Divided space/time attention with a globally attending CLS token."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 attn_impl: str = "dense",
+    def __init__(self, dim: int, num_heads: int, attn_impl: str = "dense",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if attn_impl not in ("xla", "dense"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}; expected 'xla' or 'dense'")
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.compute_dtype = compute_dtype
-        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, compute_dtype=compute_dtype)
+        self.qkv = Dense(dim, 3 * dim, compute_dtype=compute_dtype)
         self.proj = Dense(dim, dim, compute_dtype=compute_dtype)
 
     def forward(self, x, add_mask, mode: str, frames: int, patches: int):
@@ -87,14 +87,14 @@ class VarAttention(nn.Module):
         cls_out = _attention(q[:, :, :1], k, v, mask[:, None, None, :])  # (B,h,1,hd)
         m_ = mask[:, 1:].reshape(b, f, k_)
         if mode == "space":  # groups = frames, members = the K regions
-            g, length = f, k_
+            g = f
 
             def grp(t):  # (B, h, F*K, hd) -> (B, h, G, L, hd)
                 return t.reshape(b, h, f, k_, hd)
 
             m_g = m_
         else:  # groups = region index, members = that region over F frames
-            g, length = k_, f
+            g = k_
 
             def grp(t):
                 return t.reshape(b, h, f, k_, hd).transpose(2, 3)
@@ -119,19 +119,18 @@ class VarAttention(nn.Module):
 class SpaceTimeBlock(nn.Module):
     """Pre-norm block: [time attention] -> space attention -> MLP."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, time_module: Optional[str] = None,
+    def __init__(self, dim: int, num_heads: int, time_module: Optional[str] = None,
                  attn_impl: str = "dense",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.has_time = time_module == "timeattn"
         if self.has_time:
             self.norm3 = LayerNormFp32(dim)
-            self.timeattn = VarAttention(dim, num_heads, qkv_bias, attn_impl, compute_dtype)
+            self.timeattn = VarAttention(dim, num_heads, attn_impl, compute_dtype)
         self.norm1 = LayerNormFp32(dim)
-        self.attn = VarAttention(dim, num_heads, qkv_bias, attn_impl, compute_dtype)
+        self.attn = VarAttention(dim, num_heads, attn_impl, compute_dtype)
         self.norm2 = LayerNormFp32(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), compute_dtype)
+        self.mlp = Mlp(dim, MLP_RATIO * dim, compute_dtype)
 
     def forward(self, x, add_mask, frames: int, patches: int):
         if self.has_time:
@@ -148,11 +147,10 @@ class ObjectTransformer(nn.Module):
     """Region tower: (B, F, K, 2054) features + (B, F, K) binary mask ->
     (embeddings (B, 1+F*K, output_dim), additive mask (B, 1+F*K))."""
 
-    def __init__(self, input_dim: int = 2054, region_nums: int = 20,
-                 num_frames: int = 4, output_dim: int = 256,
-                 time_module: Optional[str] = None, embed_dim: int = 768,
-                 depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, attn_impl: str = "dense",
+    def __init__(self, region_nums: int = 20, num_frames: int = 4,
+                 output_dim: int = 256, time_module: Optional[str] = None,
+                 embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 attn_impl: str = "dense",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
@@ -163,10 +161,9 @@ class ObjectTransformer(nn.Module):
         self.custom_pos_embed = nn.Parameter(torch.zeros(1, region_nums + 1, d))
         self.temporal_embed = nn.Parameter(torch.zeros(1, num_frames, d))
         self.object_embedding = Dense(APPEARANCE_DIM, d, compute_dtype=compute_dtype)
-        self.pos_embedding = Dense(input_dim - APPEARANCE_DIM, d, compute_dtype=compute_dtype)
+        self.pos_embedding = Dense(GEOMETRY_DIM, d, compute_dtype=compute_dtype)
         self.blocks = nn.ModuleList(
-            SpaceTimeBlock(d, num_heads, mlp_ratio, qkv_bias, time_module,
-                           attn_impl, compute_dtype)
+            SpaceTimeBlock(d, num_heads, time_module, attn_impl, compute_dtype)
             for _ in range(depth)
         )
         self.proj = Dense(d, output_dim, bias=False, compute_dtype=compute_dtype)

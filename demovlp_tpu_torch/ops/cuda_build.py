@@ -25,7 +25,6 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -44,7 +43,8 @@ def library_path(name: str) -> Path:
 
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named source that has no up-to-date library yet, all
-    in parallel. Returns {name: compiler output}; raises on a failed build."""
+    in parallel. Returns {name: compiler output} for the sources it
+    compiled; raises on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -56,17 +56,17 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, path)
-    failed = []
+    failed, logs = [], {}
     for name, (proc, tmp, path) in procs.items():
         log, _ = proc.communicate()
-        BUILD_LOGS[name] = log
+        logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return {n: BUILD_LOGS.get(n, "") for n in names}
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -80,19 +80,12 @@ def _sim_one_direction_gram(query, context, query_mask, context_mask,
     return torch.mean(cos.reshape(bc, bq, lq), dim=-1)
 
 
-def xattn_score(images, captions, img_mask, cap_mask=None,
-                lambda_softmax: float = 20.0, focal_type: str = "prob",
-                compute_dtype=None) -> torch.Tensor:
+def xattn_score(images, captions, img_mask, cap_mask,
+                lambda_softmax: float = 20.0, focal_type: str = "prob") -> torch.Tensor:
     """Symmetric local similarity (n_images, n_captions), f32.
 
     images (Ni, R, D), captions (Nc, W, D), additive masks (Ni, R) and
-    (Nc, W); `cap_mask=None` means all-valid."""
-    if cap_mask is None:
-        cap_mask = torch.zeros(captions.shape[:2], dtype=images.dtype,
-                               device=images.device)
-    if compute_dtype is not None:
-        images = images.to(compute_dtype)
-        captions = captions.to(compute_dtype)
+    (Nc, W). The bf16 `compute_dtype` pipeline waits for the training slice."""
     # i2t: caption words attend over image regions -> (n_img, n_cap)
     i2t = _sim_one_direction_gram(
         captions, images, cap_mask, img_mask, lambda_softmax, focal_type

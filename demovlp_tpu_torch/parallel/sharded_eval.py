@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from demovlp_tpu_torch.device import to_device
 from demovlp_tpu_torch.ops.xattn_kernel import xattn_score_kernel
 
 
@@ -28,13 +29,6 @@ def _pad_rows(feats: np.ndarray, mask: np.ndarray, n: int):
     mp = np.full((n, mask.shape[1]), -100.0, np.float32)
     mp[:k] = mask
     return fp, mp
-
-
-def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(x)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 def sharded_local_sims(img_feats, lang_feats, img_mask, lang_mask, *,
@@ -60,7 +54,7 @@ def sharded_local_sims(img_feats, lang_feats, img_mask, lang_mask, *,
     def stage(start: int):
         stop = min(start + chunk, n_img)
         f, m = _pad_rows(img_feats[start:stop], img_mask[start:stop], chunk)
-        return _to_device(f, device), _to_device(m, device)
+        return to_device(f, device), to_device(m, device)
 
     # caption blocks: padded to the block shape only when there is more
     # than one block, as the JAX package does
@@ -68,7 +62,7 @@ def sharded_local_sims(img_feats, lang_feats, img_mask, lang_mask, *,
     for cs in range(0, n_cap, cap_block):
         ce = min(cs + cap_block, n_cap)
         lf, lm = _pad_rows(lang_feats[cs:ce], lang_mask[cs:ce], cap_block)
-        lang_dev, lmask_dev = _to_device(lf, device), _to_device(lm, device)
+        lang_dev, lmask_dev = to_device(lf, device), to_device(lm, device)
         staged = stage(starts[0])
         for i, start in enumerate(starts):
             feats_dev, mask_dev = staged

@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from demovlp_tpu_torch.device import to_device
 from demovlp_tpu_torch.ops.masking import additive_mask
 from demovlp_tpu_torch.ops.similarity import sim_matrix
 from demovlp_tpu_torch.parallel.sharded_eval import sharded_local_sims
@@ -51,15 +52,6 @@ def make_embed_step(model: torch.nn.Module) -> Callable:
     return step
 
 
-def _upload(x: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if dtype is not None:
-        t = t.to(dtype)  # host cast: round-to-nearest-even, as on the card
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
-
-
 def embed_loader(embed_step: Callable, dl, tokenizer, device,
                  transfer_dtype: torch.dtype | None = None,
                  ) -> Tuple[Dict[str, np.ndarray], Dict[str, List[str]]]:
@@ -87,19 +79,17 @@ def embed_loader(embed_step: Callable, dl, tokenizer, device,
 
     pending = None
     for data in dl:
-        arrays = prepare_batch(data, tokenizer)
-        arrays.pop("label", None)
-        arrays.pop("sample_valid", None)
-        arrays, n_valid = pad_batch(arrays, dl.batch_size)
+        arrays, n_valid = pad_batch(prepare_batch(data, tokenizer), dl.batch_size)
         keep = np.arange(dl.batch_size) < n_valid
-        for m in data.get("meta", [{}] * n_valid)[:n_valid]:
-            paths.append(str(m.get("paths", "")))
-            captions.append(str(m.get("raw_captions", "")))
+        for m in data["meta"]:
+            paths.append(str(m["paths"]))
+            captions.append(str(m["raw_captions"]))
         batch = {
-            "input_ids": _upload(arrays["input_ids"].astype(np.int64), device),
-            "attention_mask": _upload(arrays["attention_mask"].astype(np.int64), device),
-            "object": _upload(arrays["object"], device, transfer_dtype),
-            "object_mask": _upload(arrays["object_mask"], device),
+            "input_ids": to_device(arrays["input_ids"].astype(np.int64), device),
+            "attention_mask": to_device(arrays["attention_mask"].astype(np.int64), device),
+            # host cast: round-to-nearest-even, as the tower's own cast does
+            "object": to_device(arrays["object"], device, transfer_dtype),
+            "object_mask": to_device(arrays["object_mask"], device),
         }
         out = embed_step(batch)
         if device.type == "cuda":

@@ -12,16 +12,12 @@ import numpy as np
 def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100):
     """Tokenize the text and assemble the model's numpy array batch."""
     enc = tokenizer(batch["text"], max_length=max_text_len)
-    arrays = {
+    return {
         "input_ids": enc["input_ids"],
         "attention_mask": enc["attention_mask"],
         "object": batch["object"],
         "object_mask": batch["object_mask"],
     }
-    for key in ("label", "sample_valid"):
-        if key in batch:
-            arrays[key] = batch[key]
-    return arrays
 
 
 def pad_batch(arrays: Dict[str, np.ndarray], target: int) -> Tuple[Dict, int]:

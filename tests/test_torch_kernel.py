@@ -51,13 +51,18 @@ def test_shared_memory_at_serving_shapes():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("focal", [False, True])
-def test_kernel_matches_plain_on_card(focal):
+@pytest.mark.parametrize(
+    "shape",
+    [(17, 13, 240, 99, 256),  # serving widths, ragged tiles
+     (5, 6, 7, 9, 20)],  # D not a multiple of the 16-deep chunk
+)
+def test_kernel_matches_plain_on_card(shape, focal):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from demovlp_tpu_torch.device import resolve_device
 
     dev = resolve_device("cuda")
-    ctx, qry, mask = _inputs(17, 13, 240, 99, 256, seed=1, device=dev)
+    ctx, qry, mask = _inputs(*shape, seed=1, device=dev)
     got = xk.direction_sim(ctx, qry, mask, 20.0, focal)
     want = xk.direction_sim_plain(ctx, qry, mask, 20.0, focal)
     torch.cuda.synchronize()

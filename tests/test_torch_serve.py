@@ -81,8 +81,7 @@ def both(tmp_path_factory):
                "--results", str(tmp / "r.json"), "--device", "cpu"])
     assert len(rec) == 1
     return dict(cat=cat, meta=meta, sims=sims, kernel_sims=kernel_sims,
-                results=want_results,
-                port=rec[0], tmp=tmp)
+                results=want_results, port=rec[0], tmp=tmp)
 
 
 def test_embeddings_match(both):
