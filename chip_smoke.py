@@ -235,7 +235,7 @@ def phase_timing(cat, device):
         err = check_close(f"{bc}x{bq} {direction} equal (main path inputs)", got, want, "equal")
         log(f"[timing] {direction} {bc}x{bq} Ls={ls} Lq={lq} D={d}: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({flops:.3e} flop at "
-            f"{PEAK_F32_FLOPS:.0e}/s: {op_ms:.3f} ms; {nbytes:.3e} B at {PEAK_BYTES:.2e} B/s: "
+            f"{PEAK_F32_FLOPS:.3g}/s: {op_ms:.3f} ms; {nbytes:.3e} B at {PEAK_BYTES:.2e} B/s: "
             f"{byte_ms:.3f} ms), {flops / ms / 1e9:.2f} TFLOP/s achieved")
         total["ms"] += ms
         total["plain_ms"] += plain_ms
