@@ -26,10 +26,12 @@ from demovlp_tpu_torch.ops import cuda_build
 
 _EPS = 1e-8
 KERNEL = "xattn_sim_fwd"
-MAX_SMEM_BYTES = 232_448  # one block's shared-memory ceiling on Hopper
+_BLOCK = 64  # items a side in one block pair of the plain version
 
-#: kernel launches since the last reset (compare launches are counted too;
-#: callers reset it around the run they want to read)
+#: launcher calls since the last reset (compare launches are counted too;
+#: callers reset it around the run they want to read). One count is one
+#: direction: l2norm_rows_kernel over the context rows and over the query
+#: rows, then xattn_sim_fwd_kernel, all three on the current stream.
 LAUNCHES = {KERNEL: 0}
 
 
@@ -64,20 +66,20 @@ def _block_plain(ctx, qry, cmask, lam: float, focal_equal: bool):
 
 
 def direction_sim_plain(context, query, ctx_mask, lam: float = 20.0,
-                        focal_equal: bool = False, block: int = 64):
+                        focal_equal: bool = False):
     """Plain PyTorch version of the kernel: sim (Bc, Bq) f32, materialising
-    the (block, block, Lq, Ls) attention tensor one block pair at a time.
+    the (64, 64, Lq, Ls) attention tensor one block pair at a time.
     On the card, run it with TF32 off (device.resolve_device does)."""
     context = context.float()
     query = query.float()
     ctx_mask = ctx_mask.float()
     bc, bq = context.shape[0], query.shape[0]
     out = torch.empty((bc, bq), dtype=torch.float32, device=context.device)
-    for c0 in range(0, bc, block):
-        for q0 in range(0, bq, block):
-            out[c0:c0 + block, q0:q0 + block] = _block_plain(
-                context[c0:c0 + block], query[q0:q0 + block],
-                ctx_mask[c0:c0 + block], float(lam), focal_equal,
+    for c0 in range(0, bc, _BLOCK):
+        for q0 in range(0, bq, _BLOCK):
+            out[c0:c0 + _BLOCK, q0:q0 + _BLOCK] = _block_plain(
+                context[c0:c0 + _BLOCK], query[q0:q0 + _BLOCK],
+                ctx_mask[c0:c0 + _BLOCK], float(lam), focal_equal,
             )
     return out
 
@@ -93,12 +95,6 @@ def _library() -> ctypes.CDLL:
         ]
         fn.restype = ctypes.c_int
     return lib
-
-
-def smem_bytes(ls: int, lq: int) -> int:
-    """Shared memory one kernel block needs (mirrors the launcher's count:
-    two staged 16-deep operand chunks, the score tile, three row vectors)."""
-    return 4 * (16 * (68 + 132) + lq * ls + 2 * lq + ls)
 
 
 def _launch(context, query, ctx_mask, lam: float, focal_equal: bool):
@@ -120,8 +116,6 @@ def _launch(context, query, ctx_mask, lam: float, focal_equal: bool):
         )
     if min(ls, lq, d) < 1 or d % 4:
         raise ValueError(f"Ls, Lq and D must be positive and D a multiple of 4: {ls, lq, d}")
-    if smem_bytes(ls, lq) > MAX_SMEM_BYTES:
-        raise ValueError(f"Lq*Ls = {lq}*{ls} does not fit one block's shared memory")
     if bc * bq >= 2**31:
         raise ValueError(f"{bc}*{bq} blocks exceed the grid; chunk the gallery")
     out = torch.empty((bc, bq), dtype=torch.float32, device=context.device)
@@ -141,7 +135,10 @@ def _launch(context, query, ctx_mask, lam: float, focal_equal: bool):
             bc, bq, ls, lq, d, float(lam), int(focal_equal), stream,
         )
     if err != 0:
-        raise RuntimeError(f"xattn_sim_fwd launch failed: cudaError_t {err}")
+        # the launcher sizes shared memory itself; cudaErrorInvalidValue (1)
+        # there usually means the (Lq x Ls) score tile does not fit a block
+        raise RuntimeError(f"xattn_sim_fwd launch failed (Lq={lq}, Ls={ls}): "
+                           f"cudaError_t {err}")
     LAUNCHES[KERNEL] += 1
     return out
 

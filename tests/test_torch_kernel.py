@@ -28,10 +28,8 @@ def _inputs(bc, bq, ls, lq, d, seed=0, device="cpu"):
         (lambda c, q, m: (c.transpose(1, 2), q, m), ValueError),
         (lambda c, q, m: (c, q[..., :-1].contiguous(), m), ValueError),
         (lambda c, q, m: (c, q, m[:, :-1].contiguous()), ValueError),
-        (lambda c, q, m: (torch.zeros(1, 400, 8), torch.zeros(1, 200, 8),
-                          torch.zeros(1, 400)), ValueError),
     ],
-    ids=["dtype", "contiguity", "depth", "mask-shape", "shared-memory"],
+    ids=["dtype", "contiguity", "depth", "mask-shape"],
 )
 def test_launch_checks_arguments(change, err):
     """Checked before anything is built or launched."""
@@ -40,13 +38,6 @@ def test_launch_checks_arguments(change, err):
     with pytest.raises(err):
         xk._launch(ctx, qry, mask, 20.0, True)
     assert xk.LAUNCHES[xk.KERNEL] == before
-
-
-def test_shared_memory_at_serving_shapes():
-    """99 words x 240 regions, either direction, leaves room for two
-    blocks per SM (228 KB, 1 KB of it reserved per block)."""
-    for ls, lq in ((240, 99), (99, 240)):
-        assert 2 * (xk.smem_bytes(ls, lq) + 1024) <= 233_472
 
 
 @pytest.mark.gpu
@@ -68,3 +59,19 @@ def test_kernel_matches_plain_on_card(shape, focal):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=1e-4)
     assert got[0].abs().max().item() == 0.0  # fully masked context: p = 0
+
+
+@pytest.mark.gpu
+def test_launcher_rejects_a_score_tile_too_large_for_a_block():
+    """400 x 200 f32 scores (320 KB) exceed one block's shared memory: the
+    launcher's own sizing refuses it, the wrapper raises and counts nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    ctx, qry, mask = _inputs(2, 3, 400, 200, 8, device=dev)
+    before = xk.LAUNCHES[xk.KERNEL]
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        xk.direction_sim(ctx, qry, mask, 20.0, True)
+    assert xk.LAUNCHES[xk.KERNEL] == before

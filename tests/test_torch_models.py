@@ -4,12 +4,22 @@ demovlp_tpu_torch.convert.from_jax (dropout off: serving is deterministic).
 
 Tolerances. f32: rtol 1e-4, atol 1e-5 — both sides compute in f32 and
 differ only in summation order (and flax's E[x^2]-E[x]^2 LayerNorm
-variance against torch's two-pass form). bf16 compute: atol 0.08 with
-rtol 0.02 on activations of order 1 — the frameworks round to bf16 at
-different places (flax adds the Dense bias after rounding the product,
-torch fuses it; GELU and the 1/sqrt(hd) scale round differently), and one
-bf16 rounding is 2^-8 = 0.4% relative, so two layers of such differences
-reach a few bf16 ulps of the largest activations.
+variance against torch's two-pass form).
+
+bf16 compute: the frameworks round to bf16 at different places (flax adds
+the Dense bias after rounding the product, torch fuses it; GELU and the
+1/sqrt(hd) scale round differently), and one bf16 rounding is 2^-8 = 0.4%
+relative, so two layers of such differences reach a few bf16 ulps.
+Measured on test_object_relation_bf16's inputs (x86 CPU, float32 numpy
+comparison): max |err| / max |want| per output is 0.0091 (global object),
+0.0109 (global text), 0.0064 (local object), 0.0101 (local text); the
+largest |err| - 0.02 |want| is 0.035. The bounds are about 2.3x those
+readings: 0.025 of each output's largest value, and elementwise
+atol 0.08 with rtol 0.02. At this size such bounds hold the structure
+(the right ops, weights, masks and output dtypes), not the place of each
+bf16 rounding: one rounding moved elsewhere (bf16 attention logits, say)
+shifts these readings by about as much as the frameworks' own
+differences do.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ TEXT = dict(vocab_size=512, dim=32, n_layers=2, n_heads=4, hidden_dim=64,
             max_position_embeddings=128)
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=8e-2)
+BF16_SCALED_MAX = 0.025  # max |err| / max |want| per output
 
 
 def _models(frames, regions, attn_impl="dense", time_module=None, dtype="float32"):
@@ -155,3 +166,6 @@ def test_object_relation_bf16():
     for k in want:
         assert got[k].dtype == (torch.float32 if k == "object_mask" else torch.bfloat16), k
         _close(got[k], want[k], BF16_TOL)
+        g = got[k].float().numpy()
+        w = np.asarray(want[k], np.float32)
+        assert np.abs(g - w).max() <= BF16_SCALED_MAX * np.abs(w).max(), k

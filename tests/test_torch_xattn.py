@@ -21,7 +21,8 @@ from demovlp_tpu.parallel import create_mesh
 from demovlp_tpu.parallel.sharded_eval import sharded_local_sims as jax_local_sims
 from demovlp_tpu_torch.ops import masking, similarity
 from demovlp_tpu_torch.ops.xattn import xattn_score
-from demovlp_tpu_torch.ops.xattn_kernel import (LAUNCHES, direction_sim,
+from demovlp_tpu_torch.ops.xattn_kernel import (LAUNCHES, _block_plain,
+                                                direction_sim,
                                                 direction_sim_plain,
                                                 xattn_score_kernel)
 from demovlp_tpu_torch.parallel.sharded_eval import sharded_local_sims
@@ -59,7 +60,7 @@ def test_plain_xattn_matches_xla_and_interpret(shape, focal):
 
 
 @pytest.mark.parametrize("focal", ["prob", "equal"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + [(70, 67, 5, 4)])  # last: past one 64-item block
 def test_kernel_plain_matches_interpret(shape, focal):
     arrays = _inputs(*shape, seed=1)
     before = LAUNCHES["xattn_sim_fwd"]
@@ -99,14 +100,17 @@ def test_fully_masked_row_follows_the_kernel(focal):
 
 
 def test_direction_sim_plain_blocking_is_exact():
-    """Blocking the plain version changes nothing (each output element is
-    computed from one (context, query) pair)."""
-    img, lang, imask, _ = _inputs(9, 7, 7, 9, seed=4)
-    args = (torch.from_numpy(img), torch.from_numpy(lang), torch.from_numpy(imask), 20.0, True)
-    whole = direction_sim_plain(*args, block=64)
-    np.testing.assert_allclose(direction_sim_plain(*args, block=4).numpy(), whole.numpy(),
-                               rtol=1e-6, atol=1e-7)
-    np.testing.assert_array_equal(direction_sim(*args).numpy(), whole.numpy())
+    """More items than one 64-item block on both sides: blocking the plain
+    version changes nothing, since each output element comes from one
+    (context, query) pair."""
+    img, lang, imask, _ = _inputs(70, 67, 7, 9, d=16, seed=4)
+    for focal in (False, True):
+        args = (torch.from_numpy(img), torch.from_numpy(lang), torch.from_numpy(imask),
+                20.0, focal)
+        whole = _block_plain(*args)  # one block over everything
+        blocked = direction_sim_plain(*args)
+        np.testing.assert_allclose(blocked.numpy(), whole.numpy(), rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(direction_sim(*args).numpy(), blocked.numpy())
 
 
 def test_direction_sim_rejects_other_devices():
