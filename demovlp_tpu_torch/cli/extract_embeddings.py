@@ -25,7 +25,7 @@ import torch
 from demovlp_tpu_torch import serve
 from demovlp_tpu_torch.cli.common import (build_serving_model,
                                           build_tokenizer_from_config,
-                                          compute_dtype, init_val_loaders,
+                                          compute_dtype, init_dataloaders,
                                           local_score_args)
 from demovlp_tpu_torch.config import build_argparser, read_config
 from demovlp_tpu_torch.device import resolve_device
@@ -50,7 +50,7 @@ def run(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     config = read_config(args.config)
     model = build_serving_model(config, device, args.resume, args.seed)
     tokenizer = build_tokenizer_from_config(config)
-    loaders = init_val_loaders(config, split=args.split)
+    loaders = init_dataloaders(config, val_split=args.split, train=False)[1]
     score = local_score_args(config)
     mscoco_dedup = str(config["name"]).startswith("MSCOCO")
     bf16 = compute_dtype(config) == torch.bfloat16

@@ -1,28 +1,74 @@
 """Experiment config (cut-down counterpart of demovlp_tpu/config.py).
 
 Reads the repo's JSON experiment files (`configs/*.json`) as they are, as
-plain dicts, and parses the `-c/-r` command line. Unlike the JAX package it
-makes no run directories and writes no logs; `-r` names a reference-schema
-`.pth` of weights, not a trainer checkpoint directory.
+plain dicts, and parses the command lines. `-r` names a reference-schema
+`.pth`: weights for the serving CLI, a trainer checkpoint (weights,
+optimizer state, epoch) for the train CLI; the port writes one file that
+is both. The train CLI's overrides follow the JAX package: `--lr` ->
+optimizer.args.lr, `--bs` -> data_loader.args.batch_size; `-sc` and `-lr1`
+set the step-decay schedule. Each training run writes into
+`<trainer.save_dir>/models/<name>/<stamp>/` (stamp: $DEMOVLP_RUN_ID, else
+the time), with a config.json snapshot there.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+from datetime import datetime
+from pathlib import Path
 from typing import Any, Dict
+
+# CLI overrides: flag name -> path into the config tree
+OVERRIDES = {
+    "lr": ("optimizer", "args", "lr"),
+    "bs": ("data_loader", "args", "batch_size"),
+}
 
 
 def build_argparser(description: str = "demovlp_tpu_torch") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("-c", "--config", required=True, type=str, help="config file path")
     p.add_argument("-r", "--resume", default=None, type=str,
-                   help="reference-schema .pth of weights (default: seeded random init)")
+                   help="reference-schema .pth (default: seeded random init)")
     p.add_argument("--device", default=None, type=str,
                    help="torch device (default cuda; 'cpu' runs on the CPU)")
     p.add_argument("--seed", type=int, default=0, help="seed of the random init")
     return p
 
 
+def build_train_argparser(description: str = "demovlp_tpu_torch train") -> argparse.ArgumentParser:
+    p = build_argparser(description)
+    p.add_argument("-lr1", "--learning_rate1", type=float, default=2e-4)
+    p.add_argument("-sc", "--schedule", type=int, nargs="+", default=[30, 40])
+    p.add_argument("--lr", "--learning_rate", dest="lr", type=float, default=None)
+    p.add_argument("--bs", "--batch_size", dest="bs", type=int, default=None)
+    return p
+
+
 def read_config(path: str) -> Dict[str, Any]:
     with open(path) as f:
         return json.load(f)
+
+
+def apply_overrides(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
+    for flag, keys in OVERRIDES.items():
+        value = getattr(args, flag, None)
+        if value is None:
+            continue
+        sections = config[keys[0]]
+        for tree in sections if isinstance(sections, list) else [sections]:
+            for k in keys[1:-1]:
+                tree = tree[k]
+            tree[keys[-1]] = value
+    return config
+
+
+def make_run_dir(config: Dict[str, Any]) -> Path:
+    """The run's checkpoint directory, created, with config.json in it."""
+    stamp = os.environ.get("DEMOVLP_RUN_ID", "") or datetime.now().strftime(r"%m%d_%H%M%S")
+    root = Path(config.get("trainer", {}).get("save_dir", "exps"))
+    run_dir = root / "models" / config.get("name", "exp") / stamp
+    run_dir.mkdir(parents=True, exist_ok=True)
+    (run_dir / "config.json").write_text(json.dumps(config, indent=2))
+    return run_dir

@@ -1,10 +1,14 @@
-"""Eval-path data loader (cut-down copy of demovlp_tpu/data/loader.py).
+"""Data loader (cut-down copy of demovlp_tpu/data/loader.py), one process
+(`process_index` 0 of `process_count` 1, passed explicitly).
 
-Unshuffled, keeps the final partial batch, one process (`process_index` 0
-of `process_count` 1, passed explicitly). A background thread assembles
-the next batches with a thread pool while the caller consumes the current
-one. Training loaders (shuffle, drop_last, length grouping, multi-process
-sharding) wait for a later slice.
+Train loaders shuffle with the permutation
+`default_rng(SeedSequence([seed, epoch])).permutation(n)` and drop the last
+partial batch; eval loaders keep the dataset order and the partial batch.
+Sample i of epoch e is drawn with `SeedSequence([seed, e, i])`, so the
+batches equal the JAX loader's batch for batch. A background thread
+assembles the next batches with a thread pool while the caller consumes
+the current one. Length grouping and multi-process sharding wait for a
+later slice.
 """
 from __future__ import annotations
 
@@ -31,33 +35,49 @@ def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 class RegionDataLoader:
-    """Iterates the dataset in order, in batches of `batch_size` (the last
-    one may be short)."""
+    """Iterates the dataset in batches of `batch_size`: shuffled per epoch
+    and without the partial last batch for training, in order and with it
+    for eval."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, drop_last: bool = False, seed: int = 0,
                  process_index: int = 0, process_count: int = 1):
-        if shuffle or drop_last or (process_index, process_count) != (0, 1):
-            raise NotImplementedError(
-                "only the unshuffled single-process eval loader is ported"
-            )
+        if (process_index, process_count) != (0, 1):
+            raise NotImplementedError("multi-process loaders are not ported")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.seed = seed
+        self.epoch = 0
+        self.dataset_name = getattr(dataset, "dataset_name", type(dataset).__name__)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _fetch(self, idx: int) -> Dict[str, Any]:
-        # (seed, epoch, index) as the JAX loader seeds it; eval is epoch 0
-        rng = np.random.default_rng(np.random.SeedSequence([self.seed, 0, int(idx)]))
+        # (seed, epoch, index) as the JAX loader seeds it
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch, int(idx)]))
         return self.dataset.get_item(int(idx), rng)
 
-    def __iter__(self) -> Iterator[Dict[str, Any]]:
+    def batch_indices(self) -> List[np.ndarray]:
+        """This epoch's sample indices, batch by batch."""
         n = len(self.dataset)
-        batches = [np.arange(s, min(s + self.batch_size, n))
-                   for s in range(0, n, self.batch_size)]
+        if self.shuffle:
+            rng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch]))
+            order = rng.permutation(n)
+        else:
+            order = np.arange(n)
+        nb = len(self)
+        return [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)]
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        batches = self.batch_indices()
         out_q: queue.Queue = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
         sentinel = object()
@@ -104,12 +124,14 @@ class RegionDataLoader:
 
 
 class MultiDistTextObjectVideoDataLoader(RegionDataLoader):
-    """Config-surface constructor (the JAX package's kwargs); eval splits only."""
+    """Config-surface constructor (the JAX package's kwargs)."""
 
     def __init__(self, dataset_name: str, text_params: dict, object_params: dict,
-                 split: str = "test", batch_size: int = 1, num_workers: int = 1,
-                 shuffle: bool = False, drop_last: Optional[bool] = None,
-                 seed: int = 0, **_unused):
+                 split: str = "train", batch_size: int = 1, num_workers: int = 1,
+                 shuffle: bool = True, drop_last: Optional[bool] = None,
+                 seed: int = 0, length_grouped: bool = False, **_unused):
+        if length_grouped:
+            raise NotImplementedError("length-grouped batching is not ported")
         dataset = dataset_object_loader(
             dataset_name, text_params=text_params, object_params=object_params,
             split=split,

@@ -9,6 +9,11 @@ f32 and only then cast to the compute dtype; q is divided by sqrt(head_dim)
 in the compute dtype; padded keys get a -1e9 bias; attention logits and
 softmax are f32 and the probabilities are cast to the compute dtype before
 the PV product; GELU is exact; LayerNorm eps is 1e-12 with f32 statistics.
+
+Dropout (p = 0.1, active only in `train()` mode, drawn from torch's global
+generator) sits where the JAX tower has it: on the embeddings after their
+LayerNorm, on the attention probabilities, and on the FFN output. There is
+none on `out_lin`.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ class DistilBertConfig:
     n_heads: int = 12
     hidden_dim: int = 3072
     max_position_embeddings: int = 512
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
 
 
@@ -39,11 +46,12 @@ class Embeddings(nn.Module):
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.dim)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.dim)
         self.LayerNorm = LayerNormFp32(cfg.dim, eps=cfg.layer_norm_eps)
+        self.dropout = nn.Dropout(cfg.dropout)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         x = self.word_embeddings(input_ids) + self.position_embeddings(pos)[None]
-        return self.LayerNorm(x)  # f32
+        return self.dropout(self.LayerNorm(x))  # f32
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -51,6 +59,7 @@ class MultiHeadSelfAttention(nn.Module):
         super().__init__()
         self.n_heads = cfg.n_heads
         self.compute_dtype = compute_dtype
+        self.dropout = nn.Dropout(cfg.attention_dropout)
         for name in ("q_lin", "k_lin", "v_lin", "out_lin"):
             setattr(self, name, Dense(cfg.dim, cfg.dim, compute_dtype=compute_dtype))
 
@@ -69,7 +78,7 @@ class MultiHeadSelfAttention(nn.Module):
         v = heads(self.v_lin(x))
         # f32 logits over compute-dtype operands (f32 accumulation)
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) + add_bias
-        probs = torch.softmax(logits, dim=-1).to(cd)
+        probs = self.dropout(torch.softmax(logits, dim=-1).to(cd))
         out = torch.matmul(probs, v).transpose(1, 2).reshape(b, length, dim)
         return self.out_lin(out)
 
@@ -79,9 +88,10 @@ class FFN(nn.Module):
         super().__init__()
         self.lin1 = Dense(cfg.dim, cfg.hidden_dim, compute_dtype=compute_dtype)
         self.lin2 = Dense(cfg.hidden_dim, cfg.dim, compute_dtype=compute_dtype)
+        self.dropout = nn.Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin2(F.gelu(self.lin1(x), approximate="none"))
+        return self.dropout(self.lin2(F.gelu(self.lin1(x), approximate="none")))
 
 
 class TransformerBlock(nn.Module):

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` exposes a plain `extern "C"` launcher. At first use it
+Each `csrc/<name>.cu` exposes plain `extern "C"` launchers (and may
+include the shared `csrc/*.cuh` headers). At first use it
 is compiled by `nvcc` for sm_90a into a shared library under
 `build/torch_kernels/` at the repo root (listed in .gitignore) and loaded
 with ctypes. The library's file name carries a digest of its source, so an
@@ -36,7 +37,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    # the digest covers the shared headers too: an edited header rebuilds
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -27,7 +27,7 @@ from demovlp_tpu_torch.train.steps import pad_batch, prepare_batch
 
 #: keys of the gathered embedding dict, in trainer order
 EMBED_KEYS = ("g_t", "g_o", "l_t", "l_o", "o_mask", "t_mask", "t_len")
-_OUT_KEYS = {
+OUT_KEYS = {
     "g_t": "global_text_embeddings",
     "g_o": "global_object_embeddings",
     "l_t": "local_text_embeddings",
@@ -93,11 +93,11 @@ def embed_loader(embed_step: Callable, dl, tokenizer, device,
         }
         out = embed_step(batch)
         if device.type == "cuda":
-            host = {k: out[_OUT_KEYS[k]].to("cpu", non_blocking=True) for k in EMBED_KEYS}
+            host = {k: out[OUT_KEYS[k]].to("cpu", non_blocking=True) for k in EMBED_KEYS}
             done = torch.cuda.Event()
             done.record()
         else:
-            host, done = {k: out[_OUT_KEYS[k]] for k in EMBED_KEYS}, None
+            host, done = {k: out[OUT_KEYS[k]] for k in EMBED_KEYS}, None
         if pending is not None:
             drain(*pending)
         pending = (host, done, keep)

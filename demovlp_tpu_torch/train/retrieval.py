@@ -1,0 +1,140 @@
+"""Retrieval trainer (counterpart of demovlp_tpu/train/retrieval.py).
+
+Train: zip over the train loaders, one batch from each per step, capped by
+`max_samples_per_epoch`; tokenize -> train step on the device -> the
+epoch's learning rate from the step-decay schedule. Losses are read one
+step late (train/async_metrics.py), so the host prepares the next batch
+while the card runs the current step.
+
+Eval: embed every val batch, assemble the embeddings on the host, then the
+global cosine sims plus the local sims through the f32 forward kernel
+(serve.combined_sims), and the retrieval metrics. The reference's
+orientation quirk is kept — global(text, video) + local(video, text) summed
+elementwise — and MSCOCO-named configs take every 5th video row.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from demovlp_tpu_torch.serve import EMBED_KEYS, OUT_KEYS, combined_sims
+from demovlp_tpu_torch.train.async_metrics import DeferredMetrics
+from demovlp_tpu_torch.train.base_trainer import BaseTrainer
+from demovlp_tpu_torch.train.steps import (batch_to_device, make_retrieval_eval_step,
+                                           make_retrieval_train_step, pad_batch,
+                                           prepare_batch)
+
+def verbose(epoch, metrics, mode, name="TEST"):
+    msg = (f"[{mode}]{name:s} epoch {epoch}, R@1: {metrics['R1']:.1f}, "
+           f"R@5: {metrics['R5']:.1f}, R@10 {metrics['R10']:.1f}, R@50 {metrics['R50']:.1f}"
+           f"MedR: {metrics['MedR']:g}, MeanR: {metrics['MeanR']:.1f}")
+    print(msg, flush=True)
+    return msg
+
+
+class RetrievalTrainer(BaseTrainer):
+    """`fence_steps` synchronises the card after every train step and keeps
+    each step's wall time in `step_times` (for measurement; it removes the
+    host/card overlap). `step_losses` keeps every step's total loss."""
+
+    def __init__(self, model, loss, metrics, optimizer, config, save_dir, device,
+                 data_loader: List, valid_data_loader: Optional[List] = None,
+                 tokenizer=None, max_samples_per_epoch: int = 50000,
+                 transfer_dtype: Optional[torch.dtype] = None, fence_steps: bool = False,
+                 **kwargs):
+        super().__init__(model, loss, metrics, optimizer, config, save_dir, **kwargs)
+        self.device = torch.device(device)
+        self.data_loader = data_loader
+        self.valid_data_loader = valid_data_loader or []
+        self.do_validation = bool(self.valid_data_loader)
+        self.tokenizer = tokenizer
+        self.max_samples_per_epoch = max_samples_per_epoch
+        self.len_epoch = min(len(dl) for dl in data_loader)
+        self.total_batch_sum = sum(dl.batch_size for dl in data_loader)
+        self.log_step = max(1, int(np.sqrt(data_loader[0].batch_size)))
+        self.transfer_dtype = transfer_dtype  # see steps.batch_to_device
+        self.fence_steps = fence_steps
+        self.step_times: List[float] = []
+        self.step_losses: List[float] = []
+        self._train_step = make_retrieval_train_step(model, loss, optimizer)
+        self._eval_step = make_retrieval_eval_step(model, loss)
+
+    def _train_epoch(self, epoch: int) -> Dict[str, Any]:
+        lr = self.current_lr(epoch)
+        total_loss = [0.0] * len(self.data_loader)
+        n_steps = 0
+        for dl in self.data_loader:
+            dl.set_epoch(epoch)
+
+        def consume(m, dl_idx, batch_idx):
+            loss_v = float(m["loss"])
+            self.step_losses.append(loss_v)
+            if batch_idx % self.log_step == 0:
+                print(f"loss:{loss_v}, global_loss: {float(m['global_loss'])}, "
+                      f"local_loss: {float(m['local_loss'])}", flush=True)
+            total_loss[dl_idx] += loss_v
+
+        deferred = DeferredMetrics(consume)
+        for batch_idx, data_li in enumerate(zip(*self.data_loader)):
+            if (batch_idx + 1) * self.total_batch_sum > self.max_samples_per_epoch:
+                break
+            for dl_idx, data in enumerate(data_li):
+                batch = batch_to_device(prepare_batch(data, self.tokenizer), self.device,
+                                        self.transfer_dtype)
+                t0 = time.perf_counter()
+                m = self._train_step(batch, lr)
+                if self.fence_steps:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    self.step_times.append(time.perf_counter() - t0)
+                deferred.push(m, dl_idx, batch_idx)
+                n_steps += 1
+            if batch_idx == self.len_epoch:
+                break
+        deferred.flush()
+        denom = max(1, n_steps // max(1, len(self.data_loader)))
+        log = {f"loss_{i}": total_loss[i] / denom for i in range(len(self.data_loader))}
+        if self.do_validation:
+            log.update(self._valid_epoch(epoch))
+        return log
+
+    def embed(self, dl):
+        """Every sample of an eval loader once: (host embedding dict, mean
+        batch loss)."""
+        arrs: Dict[str, List[np.ndarray]] = {k: [] for k in EMBED_KEYS}
+        total_val_loss, n_batches = 0.0, 0
+        for data in dl:
+            arrays, n_valid = pad_batch(prepare_batch(data, self.tokenizer), dl.batch_size)
+            keep = np.arange(dl.batch_size) < n_valid
+            arrays["valid"] = keep.astype(np.float32)
+            out, (loss, _, _) = self._eval_step(
+                batch_to_device(arrays, self.device, self.transfer_dtype))
+            total_val_loss += float(loss)
+            n_batches += 1
+            for k in EMBED_KEYS:
+                v = out[OUT_KEYS[k]]
+                arrs[k].append((v.float() if v.is_floating_point() else v).cpu().numpy()[keep])
+        cat = {k: np.concatenate(v, axis=0) for k, v in arrs.items()}
+        return cat, total_val_loss / max(1, n_batches)
+
+    def _valid_epoch(self, epoch: int) -> Dict[str, Any]:
+        res: Dict[str, Any] = {}
+        nested: Dict[int, Dict[str, Any]] = {}
+        loss_args = self.config["loss"].get("args", {})
+        local = self.loss.local_loss
+        for dl_idx, dl in enumerate(self.valid_data_loader):
+            cat, res[f"val_loss_{dl_idx}"] = self.embed(dl)
+            sims = combined_sims(
+                cat, self.device, use_local=bool(loss_args.get("use_local", True)),
+                lambda_softmax=local.lambda_softmax, focal_type=local.focal_type,
+                mscoco_dedup=str(self.config["name"]).startswith("MSCOCO"))
+            dl_metrics = {}
+            for metric in self.metrics:
+                dl_metrics[metric.__name__] = r = metric(sims)
+                verbose(epoch, r, name=dl.dataset_name, mode=metric.__name__)
+            nested[dl_idx] = dl_metrics
+        res["nested_val_metrics"] = nested
+        return res

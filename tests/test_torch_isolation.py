@@ -75,3 +75,18 @@ def test_cli_raises_without_a_card(monkeypatch, tmp_path):
         run(["-c", str(ROOT / "configs/smoke/synthetic_retrieval.json"),
              "--output", str(tmp_path / "e.npz")])
     assert not (tmp_path / "e.npz").exists()
+
+
+def test_train_cli_raises_without_a_card(monkeypatch, tmp_path):
+    import json
+
+    from demovlp_tpu_torch.cli.train import run
+
+    cfg = json.loads((ROOT / "configs/smoke/synthetic_retrieval.json").read_text())
+    cfg["trainer"]["save_dir"] = str(tmp_path)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(["-c", str(path)])
+    assert not (tmp_path / "models").exists()
