@@ -4,16 +4,24 @@ A plain name -> constructor table stands in for the JAX package's registry."""
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from demovlp_tpu_torch.config import (apply_overrides, build_train_argparser,
+                                      make_run_dir, read_config)
 from demovlp_tpu_torch.convert.from_jax import load_reference_state_dict
+from demovlp_tpu_torch.convert.torch_import import load_pretrained
 from demovlp_tpu_torch.data.loader import MultiDistTextObjectVideoDataLoader
 from demovlp_tpu_torch.data.tokenizer import build_tokenizer
-from demovlp_tpu_torch.losses.losses import GlobalLocalLoss, NormSoftmaxLoss, RWALoss
-from demovlp_tpu_torch.metrics.retrieval import METRICS
-from demovlp_tpu_torch.models import DistilBertConfig, ObjectRelation
+from demovlp_tpu_torch.device import resolve_device
+from demovlp_tpu_torch.losses.losses import (CrossEntropy, GlobalLocalLoss,
+                                             MaxMarginRankingLoss, NormSoftmaxLoss, RWALoss)
+from demovlp_tpu_torch.metrics import qa as qa_metrics
+from demovlp_tpu_torch.metrics import retrieval as retrieval_metrics
+from demovlp_tpu_torch.models import (DistilBertConfig, ObjectMCRelation, ObjectQARelation,
+                                      ObjectRelation)
+from demovlp_tpu_torch.train.checkpoint import find_latest_checkpoint
 from demovlp_tpu_torch.train.optim import AdamW
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -29,15 +37,27 @@ def compute_dtype(config: Dict[str, Any]) -> torch.dtype:
     return _DTYPES[name]
 
 
+_ARCHS = {cls.__name__: cls for cls in (ObjectRelation, ObjectQARelation, ObjectMCRelation)}
+
+
 def build_model(config: Dict[str, Any]) -> ObjectRelation:
-    """The arch from its config section (ObjectRelation only), with the
-    nested object_params/text_params flattened as the JAX package does."""
+    """The arch from its config section, with the nested
+    object_params/text_params flattened as the JAX package does;
+    `num_label` and `head_dropout` go to the QA arch only."""
     arch = config["arch"]
-    if arch["type"] != "ObjectRelation":
+    if arch["type"] not in _ARCHS:
         raise NotImplementedError(f"arch {arch['type']!r} is not ported")
     args = arch.get("args", {})
     obj_p = args.get("object_params", {})
     txt_p = args.get("text_params", {})
+    if obj_p.get("attn_impl") == "pallas":
+        # the JAX package retired this value; its kernel is an op
+        # (ops/attention_kernel.py), not a model option
+        raise ValueError(
+            "object_params.attn_impl='pallas' was removed; the kernel "
+            "remains a test-only artifact (ops/pallas_attention.py). "
+            "Use 'dense' (default) or 'xla'."
+        )
     kwargs = dict(
         object_num=int(obj_p.get("object_num", 30)),
         num_frames=int(obj_p.get("num_frames", 4)),
@@ -52,7 +72,11 @@ def build_model(config: Dict[str, Any]) -> ObjectRelation:
             kwargs[dst] = int(obj_p[src])
     if txt_p.get("config"):
         kwargs["text_config"] = DistilBertConfig(**txt_p["config"])
-    return ObjectRelation(**kwargs)
+    if arch["type"] == "ObjectQARelation":
+        for key, cast in (("num_label", int), ("head_dropout", float)):
+            if key in obj_p:
+                kwargs[key] = cast(obj_p[key])
+    return _ARCHS[arch["type"]](**kwargs)
 
 
 def build_serving_model(config: Dict[str, Any], device: torch.device,
@@ -70,17 +94,23 @@ def build_serving_model(config: Dict[str, Any], device: torch.device,
 def build_train_model(config: Dict[str, Any], device: torch.device,
                       seed: int = 0) -> ObjectRelation:
     """The model on `device`: seeded random init, then the weights of
-    `arch.args.load_checkpoint` when it names a reference-schema `.pth`
-    (strict; the temporal-embed inflation of the JAX loader is not ported)."""
+    `arch.args.load_checkpoint` when it names a reference-schema `.pth`,
+    its temporal embed resized to `object_params.num_frames` per
+    `arch.args.load_temporal_fix` (default "zeros"), loaded strictly
+    (convert/torch_import.py)."""
     model = build_model(config)
     model.reset_parameters(torch.Generator().manual_seed(seed))
-    ckpt = config["arch"].get("args", {}).get("load_checkpoint", "")
+    args = config["arch"].get("args", {})
+    ckpt = args.get("load_checkpoint", "")
     if ckpt:
-        model.load_state_dict(load_reference_state_dict(ckpt), strict=True)
+        load_pretrained(model, ckpt, int(args.get("object_params", {}).get("num_frames", 4)),
+                        args.get("load_temporal_fix"))
     return model.to(device)
 
 
-_LOSSES = {cls.__name__: cls for cls in (GlobalLocalLoss, NormSoftmaxLoss, RWALoss)}
+_LOSSES = {cls.__name__: cls for cls in (GlobalLocalLoss, NormSoftmaxLoss, RWALoss,
+                                         CrossEntropy, MaxMarginRankingLoss)}
+_METRICS = {**retrieval_metrics.METRICS, **qa_metrics.METRICS}
 
 
 def build_loss(config: Dict[str, Any]):
@@ -91,10 +121,10 @@ def build_loss(config: Dict[str, Any]):
 
 
 def build_metrics(config: Dict[str, Any]) -> List:
-    missing = [m for m in config["metrics"] if m not in METRICS]
+    missing = [m for m in config["metrics"] if m not in _METRICS]
     if missing:
         raise NotImplementedError(f"metrics {missing} are not ported")
-    return [METRICS[name] for name in config["metrics"]]
+    return [_METRICS[name] for name in config["metrics"]]
 
 
 def build_optimizer(config: Dict[str, Any], params) -> AdamW:
@@ -147,3 +177,36 @@ def local_score_args(config: Dict[str, Any]) -> Dict:
         "lambda_softmax": float(args.get("lambda_softmax", 20.0)),
         "focal_type": str(args.get("focal_type", "prob")),
     }
+
+
+def run_trainer(trainer_cls, description: str, val_split: str,
+                argv: Optional[Sequence[str]] = None, fence_steps: bool = False):
+    """A train CLI: parse the command line, build everything from the
+    config and run `trainer_cls` (RetrievalTrainer, QATrainer or MCTrainer).
+    Returns the trainer with its `final_log`."""
+    args = build_train_argparser(description).parse_args(argv)
+    device = resolve_device(args.device)
+    config = apply_overrides(read_config(args.config), args)
+    torch.manual_seed(args.seed)  # dropout
+    cfg_trainer = config["trainer"]
+    save_dir = make_run_dir(config)
+    train_loaders, val_loaders = init_dataloaders(config, val_split=val_split)
+    model = build_train_model(config, device, seed=args.seed)
+    bf16 = compute_dtype(config) == torch.bfloat16
+    trainer = trainer_cls(
+        model, build_loss(config), build_metrics(config),
+        build_optimizer(config, model.parameters()), config, save_dir, device,
+        data_loader=train_loaders, valid_data_loader=val_loaders,
+        tokenizer=build_tokenizer_from_config(config),
+        max_samples_per_epoch=cfg_trainer.get("max_samples_per_epoch", 50000),
+        transfer_dtype=torch.bfloat16 if bf16 else None, fence_steps=fence_steps,
+        schedule=args.schedule, learning_rate1=args.learning_rate1,
+        lr_mode=cfg_trainer.get("lr_mode", "reference"),
+    )
+    resume = args.resume or cfg_trainer.get("resume")
+    if resume == "auto":
+        resume = find_latest_checkpoint(cfg_trainer.get("save_dir", "exps"), config["name"])
+    if resume:
+        trainer.resume(resume)
+    trainer.final_log = trainer.train()
+    return trainer

@@ -4,7 +4,8 @@ demovlp_tpu/convert/torch_export.py).
 
 Conventions: flax Dense kernel (in, out) -> Linear weight (out, in);
 LayerNorm {scale, bias} (under LayerNorm_0) -> {weight, bias}; embedding
-tables as they are. Key names are the reference torch schema, which the
+tables as they are; WeightNormDense {g, v, bias} -> {weight_g (a 0-d
+scalar), weight_v (out, in), bias}, with FCNet layer i at `main.{2 i}`. Key names are the reference torch schema, which the
 port's modules use, so `load_state_dict(strict=True)` needs no renaming.
 
 The reference creates two families of parameters it never applies: the
@@ -82,15 +83,41 @@ def _object_tower(out: Dict, tree: Mapping, p: str) -> None:
         i += 1
 
 
+def _wn_dense(out: Dict, tree: Mapping, key: str) -> None:
+    out[f"{key}.weight_g"] = _np(tree["g"]).reshape(())
+    out[f"{key}.weight_v"] = np.ascontiguousarray(_np(tree["v"]).T)
+    if "bias" in tree:
+        out[f"{key}.bias"] = _np(tree["bias"])
+
+
+def _fcnet(out: Dict, tree: Mapping, key: str) -> None:
+    for name, sub in tree.items():
+        _wn_dense(out, sub, f"{key}.main.{2 * int(name[len('layer'):])}")
+
+
+def _qa_head(out: Dict, tree: Mapping, p: str) -> None:
+    att, cls = tree["v_att"], tree["classifier"]
+    _fcnet(out, att["v_proj"], f"{p}v_att.v_proj")
+    _fcnet(out, att["q_proj"], f"{p}v_att.q_proj")
+    _wn_dense(out, att["linear"], f"{p}v_att.linear")
+    _fcnet(out, cls["q_net"], f"{p}classifier.q_net")
+    _fcnet(out, cls["v_net"], f"{p}classifier.v_net")
+    _dense(out, cls["main1"], f"{p}classifier.main.0")
+    _dense(out, cls["main2"], f"{p}classifier.main.3")
+
+
 def from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ObjectRelation params ({'params': {...}} of numpy arrays) ->
-    the port's state_dict of float32 CPU tensors."""
+    """Flax ObjectRelation / ObjectQARelation / ObjectMCRelation params
+    ({'params': {...}} of numpy arrays) -> the port's state_dict of float32
+    CPU tensors."""
     tree = params.get("params", params)
     out: Dict[str, np.ndarray] = {}
     text = tree["text_tower"]
     _distilbert(out, text["text_model"], "text_model.")
     _dense(out, text["txt_proj"], "txt_proj.1")
     _object_tower(out, tree["object_model"], "object_model.")
+    if "head" in tree:
+        _qa_head(out, tree["head"], "head.")
     return {k: torch.tensor(v) for k, v in out.items()}
 
 

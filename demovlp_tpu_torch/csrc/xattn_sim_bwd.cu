@@ -7,8 +7,8 @@
 // backward _pds_bwd), which share the per-tile math of _fa_bwd_tile and
 // _cn_to_c_grad.
 //
-// Given g = dL/dsim, each (context c, query q) pair recomputes its forward
-// in shared memory, exactly as xattn_sim_fwd.cu computes it (the same
+// Given g = dL/dsim, each (context c, query q) pair recomputes its forward,
+// exactly as xattn_sim_fwd.cu computes it (the same
 // no-max-pass softmax with p = 0 on fully masked rows, focal "equal"
 // against Ls with its renorm to 0), and runs the analytic chain back to
 // the normalised rows:
@@ -36,14 +36,24 @@
 //   * xattn_sim_bwd_dc_kernel: one block per context item c, looping over
 //     every query item q; accumulates dcn in the block's own rows of
 //     d_context and applies the cn = c / (|c| + eps) backward at the end.
-// The l2norm over Lq couples the Lq rows of a pair, so the whole (Lq x Ls)
-// tile of one pair is resident: four such tiles (a0, p, ph, dph -> da0),
-// w then dw (Lq x D), and the staging buffers. At f = 1 (Lq, Ls = 99, 30
-// or 30, 99; D = 256) that is 165 KB or 94 KB of shared memory. Shapes that
-// do not fit one block (f = 8: Ls = 240) are refused by the launcher with
-// cudaErrorInvalidValue before any launch. The accumulators live in the
-// output tensors (device memory, L2-resident), each element read and
-// written by one thread with a mapping fixed across the loop.
+// The l2norm over Lq couples the Lq rows of a pair and the softmax couples
+// its Ls columns, so the whole (Lq x Ls) tile of one pair is kept: four
+// such tiles (a0, p, ph, dph -> da0) and w then dw (Lq x D). Two layouts:
+//   * resident: the tiles, the staging buffers and the row/column vectors
+//     all in shared memory. At f = 1 (Lq, Ls = 99, 30 or 30, 99; D = 256)
+//     that is 165 KB or 94 KB.
+//   * workspace: where the tiles do not fit one block's 227 KB (f = 8:
+//     (Lq, Ls) = (99, 240) or (240, 99), 480-626 KB), the launcher puts them
+//     in a device workspace the caller allocates, one slice a block
+//     (xattn_sim_bwd_workspace gives its size); staging and vectors stay in
+//     shared memory. At 32 items a side that is about 20 MB, which stays in
+//     the 50 MB L2. The kernel does the same work in the same order either
+//     way; only the tiles' address space differs.
+// A shape whose staging and vectors alone exceed shared memory is refused
+// by the launcher with cudaErrorInvalidValue before any launch. The
+// accumulators live in the output tensors (device memory, L2-resident),
+// each element read and written by one thread with a mapping fixed across
+// the loop.
 //
 // Arithmetic is IEEE f32 FFMA (no TF32, no fast-math, expf). In bf16 mode
 // the product operands are rounded to bf16 as they are staged, as the TPU
@@ -62,7 +72,9 @@ namespace {
 
 using namespace xattn;
 
-// Shared-memory carve-up of one block (floats).
+// Carve-up of one block (floats): staging and vectors in shared memory;
+// the tiles A0, P, PH, DA, W in shared memory (resident layout) or in the
+// block's slice of the device workspace.
 struct Shm {
   float* As;    // staging, kDepth * kStrideA
   float* Bs;    // staging, kDepth * kStrideB
@@ -82,20 +94,45 @@ struct Shm {
   float* sqc;   // (Ls) sq
 };
 
-long long smem_floats(int Ls, int Lq, int D) {
-  return (long long)kStageFloats + 4LL * Lq * Ls + (long long)Lq * D + 6LL * Lq + 3LL * Ls;
+// The tiles of one pair, rounded up to a multiple of 4 floats (16 bytes).
+__host__ __device__ inline long long tile_floats(int Ls, int Lq, int D) {
+  return (4LL * Lq * Ls + (long long)Lq * D + 3) / 4 * 4;
 }
 
-__device__ Shm carve(float* smem, int Ls, int Lq, int D) {
+// Staging and the row/column vectors.
+long long vector_floats(int Ls, int Lq) {
+  return (long long)kStageFloats + 6LL * Lq + 3LL * Ls;
+}
+
+constexpr long long kMaxSmemBytes = 232448;  // one block's shared memory
+
+bool tiles_resident(int Ls, int Lq, int D) {
+  return (vector_floats(Ls, Lq) + tile_floats(Ls, Lq, D)) * (long long)sizeof(float) <=
+         kMaxSmemBytes;
+}
+
+// kWs: the tiles in `ws`, this block's workspace slice; else resident. The
+// layout is a template parameter so that the resident kernel's tile
+// pointers derive from shared memory alone and compile to shared-memory
+// loads, as they did before the workspace layout existed.
+template <bool kWs>
+__device__ Shm carve(float* smem, float* ws, int Ls, int Lq, int D) {
   Shm s;
   s.As = smem;
   s.Bs = s.As + kDepth * kStrideA;
-  s.A0 = s.Bs + kDepth * kStrideB;
+  float* vectors;
+  if constexpr (kWs) {
+    s.A0 = ws;
+    vectors = s.Bs + kDepth * kStrideB;
+  } else {
+    s.A0 = s.Bs + kDepth * kStrideB;
+  }
   s.P = s.A0 + Lq * Ls;
   s.PH = s.P + Lq * Ls;
   s.DA = s.PH + Lq * Ls;
   s.W = s.DA + Lq * Ls;
-  s.dnum = s.W + Lq * D;
+  if constexpr (!kWs) vectors = s.W + Lq * D;
+  s.dnum = vectors;
   s.cw = s.dnum + Lq;
   s.cq = s.cw + Lq;
   s.psum = s.cq + Lq;
@@ -105,6 +142,11 @@ __device__ Shm carve(float* smem, int Ls, int Lq, int D) {
   s.rc = s.cm + Ls;
   s.sqc = s.rc + Ls;
   return s;
+}
+
+// This block's slice of the workspace.
+__device__ __forceinline__ float* block_slice(float* ws, int Ls, int Lq, int D) {
+  return ws + (long long)blockIdx.x * tile_floats(Ls, Lq, D);
 }
 
 // One (context item, query item) pair: row-major (rows, D) operands.
@@ -291,7 +333,7 @@ __device__ void backward_to_da0(const Pair& pr, const Shm& sh, int Ls, int Lq, i
   __syncthreads();
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kWs>
 __global__ void __launch_bounds__(kThreads, 1)
 xattn_sim_bwd_dq_kernel(const float* __restrict__ cn,     // (Bc, Ls, D) normalised
                         const float* __restrict__ cmask,  // (Bc, Ls) additive
@@ -300,9 +342,10 @@ xattn_sim_bwd_dq_kernel(const float* __restrict__ cn,     // (Bc, Ls, D) normali
                         const float* __restrict__ qnorm,  // (Bq, Lq) |q|
                         const float* __restrict__ g,      // (Bc, Bq) cotangent
                         float* __restrict__ dq,           // (Bq, Lq, D) out
+                        float* __restrict__ ws,           // (Bq, tile) when kWs
                         int Bc, int Bq, int Ls, int Lq, int D, float lam, int focal_equal) {
   extern __shared__ __align__(16) float smem[];
-  const Shm sh = carve(smem, Ls, Lq, D);
+  const Shm sh = carve<kWs>(smem, kWs ? block_slice(ws, Ls, Lq, D) : nullptr, Ls, Lq, D);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q = blockIdx.x;
   const bool focal = focal_equal != 0;
@@ -370,7 +413,7 @@ xattn_sim_bwd_dq_kernel(const float* __restrict__ cn,     // (Bc, Ls, D) normali
   }
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kWs>
 __global__ void __launch_bounds__(kThreads, 1)
 xattn_sim_bwd_dc_kernel(const float* __restrict__ ctx,    // (Bc, Ls, D) raw
                         const float* __restrict__ cn,     // (Bc, Ls, D) normalised
@@ -380,9 +423,10 @@ xattn_sim_bwd_dc_kernel(const float* __restrict__ ctx,    // (Bc, Ls, D) raw
                         const float* __restrict__ qnorm,  // (Bq, Lq) |q|
                         const float* __restrict__ g,      // (Bc, Bq) cotangent
                         float* __restrict__ dc,           // (Bc, Ls, D) out
+                        float* __restrict__ ws,           // (Bc, tile) when kWs
                         int Bq, int Ls, int Lq, int D, float lam, int focal_equal) {
   extern __shared__ __align__(16) float smem[];
-  const Shm sh = carve(smem, Ls, Lq, D);
+  const Shm sh = carve<kWs>(smem, kWs ? block_slice(ws, Ls, Lq, D) : nullptr, Ls, Lq, D);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = kThreads / 32;
   const int tx = tid & 15, ty = tid >> 4;
   const int c = blockIdx.x;
@@ -445,9 +489,17 @@ xattn_sim_bwd_dc_kernel(const float* __restrict__ ctx,    // (Bc, Ls, D) raw
 
 template <class K>
 int prepare(K kernel, long long smem) {
-  if (smem > 232448) return (int)cudaErrorInvalidValue;  // one block's shared memory
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
+}
+
+// Dynamic shared memory of one block: everything (resident) or staging and
+// vectors only (workspace).
+long long smem_bytes(int Ls, int Lq, int D) {
+  const long long floats =
+      vector_floats(Ls, Lq) + (tiles_resident(Ls, Lq, D) ? tile_floats(Ls, Lq, D) : 0);
+  return floats * (long long)sizeof(float);
 }
 
 }  // namespace
@@ -458,18 +510,32 @@ extern "C" {
 // launches (0 = ok). cn_buf (Bc*Ls*D), qn_buf (Bq*Lq*D) and qnorm_buf
 // (Bq*Lq) are scratch the caller allocates; each launcher first fills them
 // with l2norm_rows_kernel. ctx, qry: (Bc, Ls, D), (Bq, Lq, D) f32 (bf16
-// values in bf16 mode); cmask (Bc, Ls); g (Bc, Bq). A pair tile too large
-// for one block's shared memory returns cudaErrorInvalidValue before any
-// launch. mxu_bf16 != 0 selects the bf16 mode.
+// values in bf16 mode); cmask (Bc, Ls); g (Bc, Bq). ws: the workspace,
+// xattn_sim_bwd_workspace(Ls, Lq, D) floats for each block (Bq blocks for
+// d_query, Bc for d_context), or nullptr where that size is 0. A shape
+// whose staging and vectors exceed one block's shared memory, or a missing
+// workspace, returns cudaErrorInvalidValue before any launch. mxu_bf16 != 0
+// selects the bf16 mode.
+
+// Workspace floats one block needs: 0 when the pair's tiles fit shared
+// memory (resident layout).
+long long xattn_sim_bwd_workspace(int Ls, int Lq, int D) {
+  return tiles_resident(Ls, Lq, D) ? 0 : tile_floats(Ls, Lq, D);
+}
 
 // d_query (Bq, Lq, D).
 int xattn_sim_bwd_dq(const float* ctx, const float* qry, const float* cmask, const float* g,
-                     float* dq, float* cn_buf, float* qn_buf, float* qnorm_buf, int Bc, int Bq,
-                     int Ls, int Lq, int D, float lam, int focal_equal, int mxu_bf16,
-                     void* stream) {
+                     float* dq, float* cn_buf, float* qn_buf, float* qnorm_buf, float* ws,
+                     int Bc, int Bq, int Ls, int Lq, int D, float lam, int focal_equal,
+                     int mxu_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long long smem = smem_floats(Ls, Lq, D) * (long long)sizeof(float);
-  auto kernel = mxu_bf16 ? xattn_sim_bwd_dq_kernel<true> : xattn_sim_bwd_dq_kernel<false>;
+  const long long smem = smem_bytes(Ls, Lq, D);
+  const bool resident = tiles_resident(Ls, Lq, D);
+  if (!resident && ws == nullptr) return (int)cudaErrorInvalidValue;
+  auto kernel = resident ? (mxu_bf16 ? xattn_sim_bwd_dq_kernel<true, false>
+                                     : xattn_sim_bwd_dq_kernel<false, false>)
+                        : (mxu_bf16 ? xattn_sim_bwd_dq_kernel<true, true>
+                                    : xattn_sim_bwd_dq_kernel<false, true>);
   int err = prepare(kernel, smem);
   if (err != 0 || Bq == 0) return err;
   launch_l2norm_rows(ctx, cn_buf, nullptr, (long long)Bc * Ls, D, st);
@@ -477,18 +543,24 @@ int xattn_sim_bwd_dq(const float* ctx, const float* qry, const float* cmask, con
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   kernel<<<(unsigned)Bq, kThreads, (size_t)smem, st>>>(cn_buf, cmask, qn_buf, qry, qnorm_buf, g,
-                                                      dq, Bc, Bq, Ls, Lq, D, lam, focal_equal);
+                                                      dq, resident ? nullptr : ws, Bc, Bq, Ls,
+                                                      Lq, D, lam, focal_equal);
   return (int)cudaGetLastError();
 }
 
 // d_context (Bc, Ls, D).
 int xattn_sim_bwd_dc(const float* ctx, const float* qry, const float* cmask, const float* g,
-                     float* dc, float* cn_buf, float* qn_buf, float* qnorm_buf, int Bc, int Bq,
-                     int Ls, int Lq, int D, float lam, int focal_equal, int mxu_bf16,
-                     void* stream) {
+                     float* dc, float* cn_buf, float* qn_buf, float* qnorm_buf, float* ws,
+                     int Bc, int Bq, int Ls, int Lq, int D, float lam, int focal_equal,
+                     int mxu_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long long smem = smem_floats(Ls, Lq, D) * (long long)sizeof(float);
-  auto kernel = mxu_bf16 ? xattn_sim_bwd_dc_kernel<true> : xattn_sim_bwd_dc_kernel<false>;
+  const long long smem = smem_bytes(Ls, Lq, D);
+  const bool resident = tiles_resident(Ls, Lq, D);
+  if (!resident && ws == nullptr) return (int)cudaErrorInvalidValue;
+  auto kernel = resident ? (mxu_bf16 ? xattn_sim_bwd_dc_kernel<true, false>
+                                     : xattn_sim_bwd_dc_kernel<false, false>)
+                        : (mxu_bf16 ? xattn_sim_bwd_dc_kernel<true, true>
+                                    : xattn_sim_bwd_dc_kernel<false, true>);
   int err = prepare(kernel, smem);
   if (err != 0 || Bc == 0) return err;
   launch_l2norm_rows(ctx, cn_buf, nullptr, (long long)Bc * Ls, D, st);
@@ -496,8 +568,8 @@ int xattn_sim_bwd_dc(const float* ctx, const float* qry, const float* cmask, con
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   kernel<<<(unsigned)Bc, kThreads, (size_t)smem, st>>>(ctx, cn_buf, cmask, qn_buf, qry,
-                                                      qnorm_buf, g, dc, Bq, Ls, Lq, D, lam,
-                                                      focal_equal);
+                                                      qnorm_buf, g, dc, resident ? nullptr : ws,
+                                                      Bq, Ls, Lq, D, lam, focal_equal);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,10 @@ class RegionDataset:
     def _text(self, index: int, rng: np.random.Generator):
         raise NotImplementedError
 
+    def _extras(self, index: int) -> Dict[str, Any]:
+        """Task fields (label, question_id, mc_id)."""
+        return {}
+
     def __len__(self) -> int:
         return len(self.metadata)
 
@@ -64,4 +68,5 @@ class RegionDataset:
             "object_len": obj_len,
             "text": text,
             "meta": self._meta(item, text),
+            **self._extras(item),
         }

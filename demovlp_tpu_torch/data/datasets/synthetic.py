@@ -1,7 +1,10 @@
-"""Synthetic region dataset (copy of demovlp_tpu/data/datasets/synthetic.py,
-retrieval task). Each index yields a stable pseudo-random sample, bit-
-identical to the JAX package's for the same index and settings."""
+"""Synthetic region dataset (copy of demovlp_tpu/data/datasets/synthetic.py:
+the retrieval, qa and mc tasks). Each index yields a stable pseudo-random
+sample, bit-identical to the JAX package's for the same index and
+settings."""
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import numpy as np
 
@@ -15,18 +18,32 @@ _WORDS = (
 
 class SyntheticObjectSelect(RegionDataset):
     """object_params may set `num_samples` (default 64), `caption_style`
-    ("short": 3-9 words; "long_tail": lognormal, ~12-word median) and
-    `task`; only "retrieval" is ported."""
+    ("short": 3-9 words; "long_tail": lognormal, ~12-word median), `task`
+    in {retrieval, qa, mc}, `num_label` (qa) and `num_options` (mc)."""
 
     def _load_metadata(self):
         self.num_samples = int(self.object_params.get("num_samples", 64))
         self.task = self.object_params.get("task", "retrieval")
-        if self.task != "retrieval":
-            raise NotImplementedError(
-                f"synthetic task {self.task!r}: only 'retrieval' is ported"
-            )
+        if self.task not in ("retrieval", "qa", "mc"):
+            raise ValueError(f"synthetic task {self.task!r}: expected retrieval, qa or mc")
         self.caption_style = self.object_params.get("caption_style", "short")
+        self.num_label = int(self.object_params.get("num_label", 16))
+        self.num_options = int(self.object_params.get("num_options", 5))
         self.metadata = list(range(self.num_samples))
+        if self.task == "qa":
+            self.label2ans = {i: f"ans{i}" for i in range(self.num_label)}
+            self.ans2label = {v: k for k, v in self.label2ans.items()}
+            self.qid2data = {
+                i: {"answer": f"ans{self._label(i)}", "answer_type": "what", "question_id": i}
+                for i in range(self.num_samples)
+            }
+        if self.task == "mc":
+            self.id2answer = {i: self._label(i) % self.num_options
+                              for i in range(self.num_samples)}
+            self.id2data = {i: {"id": i} for i in range(self.num_samples)}
+
+    def _label(self, index: int) -> int:
+        return index % self.num_label
 
     def _caption(self, index: int, offset: int = 0) -> str:
         rng = np.random.default_rng(1000 + index * 37 + offset)
@@ -48,5 +65,14 @@ class SyntheticObjectSelect(RegionDataset):
         mask = (np.arange(k)[None, :] < lens[:, None]).astype(np.float32)
         return obj, mask, lens.tolist()
 
-    def _text(self, index: int, rng) -> str:
+    def _text(self, index: int, rng):
+        if self.task == "mc":
+            return [self._caption(index, o) for o in range(self.num_options)]
         return self._caption(index)
+
+    def _extras(self, index: int) -> Dict[str, Any]:
+        if self.task == "qa":
+            return {"label": self._label(index), "question_id": index}
+        if self.task == "mc":
+            return {"label": self._label(index) % self.num_options, "mc_id": index}
+        return {}

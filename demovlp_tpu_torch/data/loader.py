@@ -26,12 +26,19 @@ _PREFETCH = 2  # batches assembled ahead of the consumer
 
 def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Stack per-sample dicts into a fixed-shape numpy batch."""
-    return {
+    batch: Dict[str, Any] = {
         "object": np.stack([it["object"] for it in items]).astype(np.float32),
         "object_mask": np.stack([it["object_mask"] for it in items]).astype(np.float32),
         "text": [it["text"] for it in items],
         "meta": [it["meta"] for it in items],
     }
+    if "label" in items[0]:
+        batch["label"] = np.asarray([it["label"] for it in items], dtype=np.int32)
+    if "question_id" in items[0]:
+        batch["question_id"] = np.asarray([it["question_id"] for it in items], dtype=np.int64)
+    if "mc_id" in items[0]:
+        batch["mc_id"] = [it["mc_id"] for it in items]
+    return batch
 
 
 class RegionDataLoader:

@@ -1,13 +1,16 @@
-"""Retrieval training objectives (counterpart of demovlp_tpu/losses/losses.py:
-`norm_softmax_loss`, `rwa_loss`, `NormSoftmaxLoss`, `RWALoss`,
-`GlobalLocalLoss`).
+"""Training objectives (counterpart of demovlp_tpu/losses/losses.py:
+`norm_softmax_loss`, `rwa_loss`, `cross_entropy_loss`,
+`max_margin_ranking_loss`, `NormSoftmaxLoss`, `RWALoss`, `GlobalLocalLoss`,
+`CrossEntropy`, `MaxMarginRankingLoss`).
 
 The local scores go through `ops.xattn_kernel.xattn_score_kernel`: on the
 card the fused forward kernel and the two backward kernels, on the CPU
 their plain versions. That is the JAX package's `ops.xattn_backend:
 "pallas"` path; `local_dtype: "bfloat16"` selects the kernels' bf16 mode.
 The XLA-backend bf16 pipeline, `local_block_segment` (blockwise scores)
-and `local_remat` are not ported. The QA/MC losses wait for their slice.
+and `local_remat` are not ported. `RWALoss.get_sim`, the multiple-choice
+score, runs the kernels' f32 mode. The cross-entropy takes bf16 logits to
+f32 first, where the JAX package computes it in the logits' dtype.
 """
 from __future__ import annotations
 
@@ -70,6 +73,30 @@ def rwa_loss(im, s, im_mask, s_mask=None, lambda_softmax: float = 20.0,
     return torch.sum(torch.where(vbool, row_loss, 0.0)) / torch.sum(valid.to(scores.dtype))
 
 
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy with integer labels (torch
+    nn.CrossEntropyLoss in the reference)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.mean(torch.gather(logp, 1, labels.long()[:, None])[:, 0])
+
+
+def max_margin_ranking_loss(x: torch.Tensor, margin: float = 1.0,
+                            fix_norm: bool = True) -> torch.Tensor:
+    """Bidirectional max-margin ranking loss over a similarity matrix; with
+    fix_norm, the mean over the off-diagonal entries only."""
+    n = x.shape[0]
+    diag = torch.diagonal(x)
+    x1 = diag[:, None].expand(n, n).reshape(-1)
+    x1 = torch.cat([x1, x1])
+    x2 = torch.cat([x.reshape(-1), x.T.reshape(-1)])
+    hinge = torch.relu(margin - (x1 - x2))
+    if not fix_norm:
+        return torch.mean(hinge)
+    keep = 1.0 - torch.eye(n, dtype=x.dtype, device=x.device)
+    keep = torch.cat([keep.reshape(-1), keep.T.reshape(-1)])
+    return torch.sum(hinge * keep) / torch.sum(keep)
+
+
 @dataclass(frozen=True)
 class NormSoftmaxLoss:
     temperature: float = 0.05
@@ -95,6 +122,11 @@ class RWALoss:
         # s_lens: accepted for call-surface parity, never used
         return rwa_loss(im, s, im_mask, s_mask, self.lambda_softmax, self.focal_type,
                         _LOCAL_DTYPES[self.local_dtype], valid)
+
+    def get_sim(self, im, s, im_mask, s_lens=None, s_mask=None):
+        """(n_images, n_captions) local sims, f32 mode."""
+        return xattn_score_kernel(im, s, im_mask, s_mask, self.lambda_softmax,
+                                  self.focal_type)
 
 
 @dataclass(frozen=True)
@@ -139,3 +171,18 @@ class GlobalLocalLoss:
             return l, zero, l
         g = self.global_loss(global_sim, valid)
         return g + l, g, l
+
+
+@dataclass(frozen=True)
+class CrossEntropy:
+    def __call__(self, logits, labels):
+        return cross_entropy_loss(logits, labels)
+
+
+@dataclass(frozen=True)
+class MaxMarginRankingLoss:
+    margin: float = 1.0
+    fix_norm: bool = True
+
+    def __call__(self, x):
+        return max_margin_ranking_loss(x, self.margin, self.fix_norm)

@@ -1,11 +1,15 @@
-"""Dual-encoder retrieval model (counterpart of ObjectRelation in
-demovlp_tpu/models/dual_encoder.py).
+"""The model families (counterpart of demovlp_tpu/models/dual_encoder.py:
+`ObjectRelation`, `ObjectQARelation`, `ObjectMCRelation`).
 
 Text side: DistilBERT last hidden state -> `txt_proj = Sequential(ReLU,
 Linear)`; the CLS row is the global text embedding, the other rows the
 local word embeddings. Region side: ObjectTransformer; CLS row global, the
-rest local. The forward returns the five-tensor dict with the object mask's
-CLS column trimmed. The MLM head and the QA/MC models wait for later slices.
+rest local. The retrieval forward returns the five-tensor dict with the
+object mask's CLS column trimmed. QA max-pools the projected text over ALL
+positions, padded ones included (reference model.py:286), and runs the BUTD
+head over the non-CLS region embeddings with the BINARY region mask
+flattened to (B, F*K). MC is the retrieval architecture, scored per option.
+The MLM head waits for a later slice.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch.nn as nn
 from demovlp_tpu_torch.models.distilbert import DistilBertConfig, DistilBertModel
 from demovlp_tpu_torch.models.layers import Dense, init_weights, trunc_normal_
 from demovlp_tpu_torch.models.object_transformer import ObjectTransformer
+from demovlp_tpu_torch.models.qa_head import BUTDQAHead
 
 
 class ObjectRelation(nn.Module):
@@ -68,3 +73,26 @@ class ObjectRelation(nn.Module):
             local_object_embeddings=l_o,
             object_mask=add_mask[:, 1:],  # additive, CLS trimmed
         )
+
+
+class ObjectQARelation(ObjectRelation):
+    """Video-QA model: the towers and the BUTD head; forward -> {"logits"}."""
+
+    def __init__(self, num_label: int = 1500, head_dropout: float = 0.2, **kwargs):
+        super().__init__(**kwargs)
+        dim = kwargs.get("projection_dim", 256)
+        self.head = BUTDQAHead(v_dim=dim, q_dim=dim, hid_dim=dim, out_dim=num_label,
+                               dropout=head_dropout,
+                               compute_dtype=kwargs.get("compute_dtype", torch.float32))
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        text = self.txt_proj(self.text_model(batch["input_ids"], batch["attention_mask"]))
+        obj, _ = self.object_model(batch["object"], batch["object_mask"])
+        text_pooled = torch.amax(text, dim=1)  # padded positions included
+        flat_mask = batch["object_mask"].reshape(obj.shape[0], -1)
+        return dict(logits=self.head(text_pooled, obj[:, 1:], flat_mask))
+
+
+class ObjectMCRelation(ObjectRelation):
+    """Multiple-choice model: the retrieval architecture, scored by
+    option-expanded similarity (train/steps.py)."""

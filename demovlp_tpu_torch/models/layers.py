@@ -1,6 +1,6 @@
 """Shared model layers (counterpart of demovlp_tpu/models/layers.py:
-`LayerNormFp32`, `Mlp`, `trunc_normal_init`), plus `Dense`, the Linear
-that computes in the model's compute dtype.
+`LayerNormFp32`, `Mlp`, `WeightNormDense`, `FCNet`, `trunc_normal_init`),
+plus `Dense`, the Linear that computes in the model's compute dtype.
 
 Parameters always stay float32, as in the JAX package (param_dtype f32);
 a bf16 model casts weights and inputs to bf16 at each product.
@@ -54,6 +54,51 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
+class WeightNormDense(nn.Module):
+    """Linear with weight normalisation over the whole matrix (torch
+    weight_norm(..., dim=None)): w = g v / max(|v|_F, 1e-12), g a scalar;
+    the product in `compute_dtype`. Keys weight_g, weight_v, bias."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weight_g = nn.Parameter(torch.ones(()))
+        self.weight_v = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """lecun-normal v and g = |v|_F, so the weight equals v at init."""
+        trunc_normal_(self.weight_v, 1.0 / math.sqrt(self.weight_v.shape[1]) / 0.87962566,
+                      generator)
+        with torch.no_grad():
+            self.weight_g.copy_(torch.linalg.norm(self.weight_v))
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        w = self.weight_g / torch.clamp(torch.linalg.norm(self.weight_v), min=1e-12) * self.weight_v
+        b = None if self.bias is None else self.bias.to(cd)
+        return F.linear(x.to(cd), w.to(cd), b)
+
+
+class FCNet(nn.Module):
+    """(weight-normed Linear -> ReLU) stack over dims [in, hidden..., out];
+    `main` holds them as the reference's Sequential (Linears at even
+    indices)."""
+
+    def __init__(self, dims, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        layers = []
+        for d_in, d_out in zip(dims[:-1], dims[1:]):
+            layers += [WeightNormDense(d_in, d_out, compute_dtype=compute_dtype), nn.ReLU()]
+        self.main = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.main(x)
+
+
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
     """Normal(0, std) truncated to [-2 std, 2 std], as flax's
     truncated_normal(stddev=std, lower=-2, upper=2) draws it."""
@@ -80,6 +125,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                           generator)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
+        elif isinstance(mod, WeightNormDense):
+            mod.reset_parameters(generator)
         elif isinstance(mod, nn.LayerNorm):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)

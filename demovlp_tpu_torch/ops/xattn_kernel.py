@@ -226,17 +226,19 @@ _ARGTYPES = {
     # passed as a 32-bit int and cut the pointer
     "xattn_sim_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "xattn_sim_bwd_dq": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    "xattn_sim_bwd_dq": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "xattn_sim_bwd_workspace": [ctypes.c_int] * 3,
 }
 _ARGTYPES["xattn_sim_bwd_dc"] = _ARGTYPES["xattn_sim_bwd_dq"]
+_RESTYPES = {"xattn_sim_bwd_workspace": ctypes.c_longlong}
 
 
 def _function(source: str, name: str):
     fn = getattr(cuda_build.load(source), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return fn
 
 
@@ -282,14 +284,22 @@ def _launch_bwd(name: str, context, query, ctx_mask, g, lam: float, focal_equal:
         return out.zero_()
     fn = _function(_BWD_SOURCE, name)
     cn, qn, q_norm = _scratch(context, query)
+    # where a pair's tiles do not fit one block's shared memory (f = 8), each
+    # block keeps them in its own slice of this workspace (size from the
+    # launcher's own sizing)
+    per_block = int(_function(_BWD_SOURCE, "xattn_sim_bwd_workspace")(ls, lq, d))
+    blocks = bq if name == KERNEL_DQ else bc
+    ws = (torch.empty(blocks * per_block, dtype=torch.float32, device=context.device)
+          if per_block else None)
     with torch.cuda.device(context.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(context.data_ptr(), query.data_ptr(), ctx_mask.data_ptr(), g.data_ptr(),
                  out.data_ptr(), cn.data_ptr(), qn.data_ptr(), q_norm.data_ptr(),
+                 None if ws is None else ws.data_ptr(),
                  bc, bq, ls, lq, d, float(lam), int(focal_equal), int(mxu_bf16), stream)
     if err != 0:
-        # cudaErrorInvalidValue (1): the pair's (Lq x Ls) tiles and its
-        # (Lq x D) weighted context do not fit one block's shared memory
+        # cudaErrorInvalidValue (1): the staging buffers and the pair's row
+        # and column vectors do not fit one block's shared memory
         raise RuntimeError(f"{name} launch failed (Lq={lq}, Ls={ls}, D={d}): "
                            f"cudaError_t {err}")
     LAUNCHES[name] += 1

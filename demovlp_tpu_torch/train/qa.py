@@ -1,0 +1,121 @@
+"""Video-QA trainer (counterpart of demovlp_tpu/train/qa.py): cross-entropy
+on the classifier's logits with a running accuracy; eval takes the argmax
+of every val sample's logits and scores them with `evaluate_qa`'s
+per-answer-type breakdown. One process: no gathers across hosts.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from demovlp_tpu_torch.train.async_metrics import DeferredMetrics
+from demovlp_tpu_torch.train.base_trainer import BaseTrainer
+from demovlp_tpu_torch.train.steps import (batch_to_device, make_qa_eval_step,
+                                           make_qa_train_step, pad_batch, prepare_batch)
+
+
+class QATrainer(BaseTrainer):
+    """`fence_steps` and `step_times` / `step_losses` as in RetrievalTrainer."""
+
+    def __init__(self, model, loss, metrics, optimizer, config, save_dir, device,
+                 data_loader: List, valid_data_loader: Optional[List] = None,
+                 tokenizer=None, max_samples_per_epoch: int = 50000,
+                 transfer_dtype: Optional[torch.dtype] = None, fence_steps: bool = False,
+                 **kwargs):
+        super().__init__(model, loss, metrics, optimizer, config, save_dir, **kwargs)
+        self.device = torch.device(device)
+        self.data_loader = data_loader
+        self.valid_data_loader = valid_data_loader or []
+        self.do_validation = bool(self.valid_data_loader)
+        self.tokenizer = tokenizer
+        self.max_samples_per_epoch = max_samples_per_epoch
+        self.len_epoch = min(len(dl) for dl in data_loader)
+        self.total_batch_sum = sum(dl.batch_size for dl in data_loader)
+        self.log_step = max(1, int(np.sqrt(data_loader[0].batch_size)))
+        self.transfer_dtype = transfer_dtype
+        self.fence_steps = fence_steps
+        self.step_times: List[float] = []
+        self.step_losses: List[float] = []
+        self.valid_label2ans = [dl.dataset.label2ans for dl in self.valid_data_loader]
+        self.valid_qid2data = [dl.dataset.qid2data for dl in self.valid_data_loader]
+        self._train_step = make_qa_train_step(model, loss, optimizer)
+        self._eval_step = make_qa_eval_step(model)
+
+    def _train_epoch(self, epoch: int) -> Dict[str, Any]:
+        lr = self.current_lr(epoch)
+        total_loss = [0.0] * len(self.data_loader)
+        pos_cnt, tot_cnt, n_steps = 0.0, 0, 0
+        for dl in self.data_loader:
+            dl.set_epoch(epoch)
+
+        def consume(m, dl_idx, batch_idx, n_text):
+            nonlocal pos_cnt, tot_cnt
+            loss_v = float(m["loss"])
+            self.step_losses.append(loss_v)
+            pos_cnt += float(m["correct"])
+            tot_cnt += n_text
+            total_loss[dl_idx] += loss_v
+            if batch_idx % self.log_step == 0:
+                print(f"loss:{loss_v}, acc: {pos_cnt / max(1, tot_cnt)}, "
+                      f"postive/all : {pos_cnt}/{tot_cnt}", flush=True)
+
+        deferred = DeferredMetrics(consume)
+        for batch_idx, data_li in enumerate(zip(*self.data_loader)):
+            if (batch_idx + 1) * self.total_batch_sum > self.max_samples_per_epoch:
+                break
+            for dl_idx, data in enumerate(data_li):
+                batch = batch_to_device(prepare_batch(data, self.tokenizer), self.device,
+                                        self.transfer_dtype)
+                t0 = time.perf_counter()
+                m = self._train_step(batch, lr)
+                if self.fence_steps:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    self.step_times.append(time.perf_counter() - t0)
+                deferred.push(m, dl_idx, batch_idx, len(data["text"]))
+                n_steps += 1
+            if batch_idx == self.len_epoch:
+                break
+        deferred.flush()
+        denom = max(1, n_steps // max(1, len(self.data_loader)))
+        log = {f"loss_{i}": total_loss[i] / denom for i in range(len(self.data_loader))}
+        log["train_acc"] = pos_cnt / max(1, tot_cnt)
+        if self.do_validation:
+            log.update(self._valid_epoch(epoch))
+        return log
+
+    def predict(self, dl):
+        """(question ids, argmax labels) of every sample of an eval loader."""
+        preds, qids = [], []
+        for data in dl:
+            arrays = prepare_batch(data, self.tokenizer)
+            arrays.pop("label", None)
+            arrays, n_valid = pad_batch(arrays, dl.batch_size)
+            logits = self._eval_step(batch_to_device(arrays, self.device, self.transfer_dtype))
+            preds.append(torch.argmax(logits[:n_valid], dim=-1).cpu().numpy())
+            qids.append(np.asarray(data["question_id"]))
+        if not preds:
+            return np.zeros((0,), np.int64), np.zeros((0,), np.int64)
+        return np.concatenate(qids), np.concatenate(preds)
+
+    def _valid_epoch(self, epoch: int) -> Dict[str, Any]:
+        nested: Dict[int, Dict[str, Any]] = {}
+        res: Dict[str, Any] = {}
+        for dl_idx, dl in enumerate(self.valid_data_loader):
+            qid2data = self.valid_qid2data[dl_idx]
+            qids, preds = self.predict(dl)
+            results = [dict(question_id=int(q), answer=int(p), data=qid2data[int(q)])
+                       for q, p in zip(qids, preds)]
+            print(f"Get {len(results)} results.", flush=True)
+            dl_metrics: Dict[str, Any] = {}
+            for metric in self.metrics:
+                dl_metrics[metric.__name__] = r = metric(results, self.valid_label2ans[dl_idx],
+                                                         qid2data)
+                print(r, flush=True)
+            nested[dl_idx] = dl_metrics
+            res[f"val_loss_{dl_idx}"] = 0.0
+        res["nested_val_metrics"] = nested
+        return res

@@ -1,7 +1,8 @@
-"""Batch preparation and the retrieval train and eval steps (counterpart of
+"""Batch preparation and the train and eval steps (counterpart of
 demovlp_tpu/train/steps.py: `prepare_batch`, `pad_batch`,
 `_retrieval_losses`, `make_retrieval_train_step`,
-`make_retrieval_eval_step`).
+`make_retrieval_eval_step`, `make_qa_train_step`, `make_qa_eval_step`,
+`make_mc_eval_step_batched`, `make_mc_eval_step`).
 
 Text buckets are off: every batch is tokenized to the fixed length 100, as
 the reference does. The MLM objective and `cast_tower_weights` (numerically
@@ -20,14 +21,22 @@ from demovlp_tpu_torch.ops.similarity import sim_matrix
 
 
 def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100):
-    """Tokenize the text and assemble the model's numpy array batch."""
-    enc = tokenizer(batch["text"], max_length=max_text_len)
-    return {
+    """Tokenize the text and assemble the model's numpy array batch. A
+    multiple-choice item's option texts are flattened in order; a batch's
+    labels are carried."""
+    text = batch["text"]
+    if text and isinstance(text[0], (list, tuple)):
+        text = [t for opts in text for t in opts]
+    enc = tokenizer(text, max_length=max_text_len)
+    arrays = {
         "input_ids": enc["input_ids"],
         "attention_mask": enc["attention_mask"],
         "object": batch["object"],
         "object_mask": batch["object_mask"],
     }
+    if "label" in batch:
+        arrays["label"] = batch["label"]
+    return arrays
 
 
 def pad_batch(arrays: Dict[str, np.ndarray], target: int) -> Tuple[Dict, int]:
@@ -56,6 +65,8 @@ def batch_to_device(arrays: Dict[str, np.ndarray], device: torch.device,
     }
     if "valid" in arrays:
         out["valid"] = to_device(arrays["valid"], device)
+    if "label" in arrays:
+        out["label"] = to_device(arrays["label"].astype(np.int64), device)
     return out
 
 
@@ -109,5 +120,100 @@ def make_retrieval_eval_step(model: torch.nn.Module, loss_obj) -> Callable:
         out["text_mask_add"] = additive_mask(batch["attention_mask"][:, 1:])
         out["text_length"] = torch.sum(batch["attention_mask"], dim=1).to(torch.int32)
         return out, losses
+
+    return step
+
+
+def make_qa_train_step(model: torch.nn.Module, loss_obj, optimizer,
+                       deterministic: bool = False) -> Callable:
+    """step(batch, lr) -> {"loss", "correct"} (device scalars): forward
+    (dropout on unless `deterministic`), cross-entropy on the logits,
+    backward, one AdamW update; `correct` counts argmax hits."""
+
+    def step(batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
+        model.train(not deterministic)
+        optimizer.set_lr(lr)
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(batch)["logits"]
+        loss = loss_obj(logits, batch["label"])
+        loss.backward()
+        optimizer.step()
+        correct = torch.sum((torch.argmax(logits, dim=-1) == batch["label"]).float())
+        return {"loss": loss.detach(), "correct": correct.detach()}
+
+    return step
+
+
+def make_qa_eval_step(model: torch.nn.Module) -> Callable:
+    """step(batch) -> logits (B, num_label)."""
+
+    @torch.inference_mode()
+    def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        model.eval()
+        return model(batch)["logits"]
+
+    return step
+
+
+def _mc_local_row0(loss_obj, l_o0, o_mask0, l_t, t_mask, n_opt: int) -> torch.Tensor:
+    """(B, n_opt) local sims of each item's first video row against its own
+    options. l_o0 (B, R, D) and o_mask0 (B, R) are the items' first rows,
+    l_t (B * n_opt, W, D) and t_mask every option; one call scores every
+    video row against every option, and each item keeps its own block."""
+    b = l_o0.shape[0]
+    sims = loss_obj.local_loss.get_sim(l_o0, l_t, o_mask0, None, t_mask)  # (B, B * n_opt)
+    idx = torch.arange(b, device=sims.device)
+    return sims.reshape(b, b, n_opt)[idx, idx]
+
+
+def make_mc_eval_step_batched(model: torch.nn.Module, loss_obj) -> Callable:
+    """step(batch) -> (B, n_options) scores for B multiple-choice items a
+    call; batch arrays are (B, n_options, ...), each item's video repeated
+    over its options. Per item the score of option p is the reference's
+    global(text 0, video p) + local(video 0, text p) (row 0 of the item's
+    (n_opt, n_opt) matrix, orientation quirk kept), identical item by item
+    to `make_mc_eval_step`."""
+
+    @torch.inference_mode()
+    def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        b, n_opt = batch["input_ids"].shape[:2]
+        flat = {k: v.reshape((b * n_opt,) + v.shape[2:]) for k, v in batch.items()}
+        model.eval()
+        out = model(flat)
+
+        def by_item(x):
+            return x.reshape((b, n_opt) + x.shape[1:])
+
+        eps = 1e-8
+        g_t = by_item(out["global_text_embeddings"]).float()
+        g_o = by_item(out["global_object_embeddings"]).float()
+        g_t = g_t / torch.clamp(torch.linalg.norm(g_t, dim=-1, keepdim=True), min=eps)
+        g_o = g_o / torch.clamp(torch.linalg.norm(g_o, dim=-1, keepdim=True), min=eps)
+        gsim = torch.einsum("bd,bpd->bp", g_t[:, 0], g_o)
+        text_mask = additive_mask(flat["attention_mask"][:, 1:])
+        lsim = _mc_local_row0(loss_obj, by_item(out["local_object_embeddings"])[:, 0].float(),
+                              by_item(out["object_mask"])[:, 0].float(),
+                              out["local_text_embeddings"].float(), text_mask, n_opt)
+        return gsim + lsim
+
+    return step
+
+
+def make_mc_eval_step(model: torch.nn.Module, loss_obj) -> Callable:
+    """step(batch) -> (n_options,) scores of one item (batch of n_options
+    rows: the video repeated, one option text a row), the batch-1 form."""
+
+    @torch.inference_mode()
+    def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        model.eval()
+        out = model(batch)
+        gsim = sim_matrix(out["global_text_embeddings"].float(),
+                          out["global_object_embeddings"].float())
+        text_mask = additive_mask(batch["attention_mask"][:, 1:])
+        lsim = _mc_local_row0(loss_obj, out["local_object_embeddings"][:1].float(),
+                              out["object_mask"][:1].float(),
+                              out["local_text_embeddings"].float(), text_mask,
+                              batch["input_ids"].shape[0])
+        return gsim[0] + lsim[0]
 
     return step

@@ -123,16 +123,53 @@ def test_bwd_kernels_match_plain_on_card(shape, focal, bf16):
 
 
 @pytest.mark.gpu
-def test_bwd_launcher_rejects_tiles_too_large_for_a_block():
-    """f = 8 shapes (Ls = 240, Lq = 99, D = 256): four (Lq x Ls) tiles and
-    the (Lq x D) weighted context exceed one block's shared memory, so the
-    launcher refuses and the wrapper raises and counts nothing."""
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])
+@pytest.mark.parametrize("shape", [(6, 5, 240, 99, 256), (5, 6, 99, 240, 256)],
+                         ids=["i2t", "t2i"])
+def test_bwd_kernels_launch_at_f8_shapes(shape, focal, bf16):
+    """The fine-tune shapes (f = 8 x k = 30 regions, 99 words, D = 256):
+    the pair's tiles exceed one block's shared memory, so the launcher
+    keeps them in the wrapper's device workspace. Same checks and
+    tolerances as test_bwd_kernels_match_plain_on_card, and a fully masked
+    context item gets exactly zero gradient."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from demovlp_tpu_torch.device import resolve_device
 
     dev = resolve_device("cuda")
-    ctx, qry, mask, g = _train_like_inputs(2, 3, 240, 99, 256, seed=0, device=dev)
+    ctx, qry, mask, g = _train_like_inputs(*shape, seed=5, device=dev)
+    if bf16:
+        ctx, qry = xk.round_bf16(ctx), xk.round_bf16(qry)
+    tol = 2e-3 if bf16 else 1e-4
+    before = dict(xk.LAUNCHES)
+    dc, dq = xk.direction_sim_bwd(ctx, qry, mask, g, 20.0, focal, bf16)
+    dc2, dq2 = xk.direction_sim_bwd(ctx, qry, mask, g, 20.0, focal, bf16)
+    pdc, pdq = xk.direction_sim_bwd_plain(ctx, qry, mask, g, 20.0, focal, bf16)
+    torch.cuda.synchronize()
+    assert xk.LAUNCHES[xk.KERNEL_DQ] == before[xk.KERNEL_DQ] + 2
+    assert xk.LAUNCHES[xk.KERNEL_DC] == before[xk.KERNEL_DC] + 2
+    assert torch.equal(dc, dc2) and torch.equal(dq, dq2)  # no atomics: bit-identical
+    for a, b in ((dc, pdc), (dq, pdq)):
+        assert torch.isfinite(a).all()
+        err = (a - b).abs()
+        assert float((err > tol).float().mean()) <= 0.01, float(err.max())
+        assert float(err.max()) < 50 * tol
+    assert float(dc[0].abs().max()) == 0.0  # item 0 is masked throughout
+
+
+@pytest.mark.gpu
+def test_bwd_launcher_rejects_vectors_too_large_for_a_block():
+    """Lq = 9200 query rows: the staging buffers and the per-row vectors
+    alone exceed one block's shared memory, which the workspace does not
+    relieve, so the launcher refuses and the wrapper raises and counts
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    ctx, qry, mask, g = _train_like_inputs(2, 3, 2, 9200, 4, seed=0, device=dev)
     before = dict(xk.LAUNCHES)
     with pytest.raises(RuntimeError, match="cudaError_t"):
         xk.direction_sim_bwd(ctx, qry, mask, g, 20.0, True, True)

@@ -79,6 +79,9 @@ def _assert_grad_close(got, ref, mode):
 _CASES = [(s, f, m) for s in [(6, 5, 7, 9, 32), (8, 8, 30, 20, 32)]
           for f in ("prob", "equal") for m in ("f32", "bf16")]
 _CASES.append(((5, 7, 11, 6, 20), "equal", "bf16"))  # ragged, odd Lq, D = 20
+# the fine-tune shapes, f = 8 x k = 30 regions and 99 words, with few items
+# and a small D: (Lq, Ls) = (99, 240) for i2t and (240, 99) for t2i
+_CASES += [((2, 3, 240, 99, 8), f, m) for f, m in (("equal", "f32"), ("prob", "bf16"))]
 
 
 @pytest.mark.parametrize("shape,focal,mode", _CASES,
