@@ -48,18 +48,23 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 (256 items, 5 options, 8 items a call); card vs CPU on the
                 smoke config: the option scores;
  14. timing   — each kernel and its plain version on the main paths' own
-                inputs, beside the card's bound for the same work: the
+                inputs, beside the card's bound for the same work (f32 mode:
+                3 TF32 passes at the TF32 peak, the f32 FFMA bound printed
+                beside it) and beside its previous design's time: the
                 serving forward, the training kernels at f = 1 and the
-                backward kernels at f = 8 (the fine-tune's first batch),
-                grouped attention at the region tower's f = 8 shapes beside
-                torch's scaled_dot_product_attention; and one step each of
-                the train and fine-tune runs split into towers, loss,
-                backward and optimizer, and by kernel with the profiler.
+                forward and backward kernels at f = 8 (the fine-tune's first
+                batch), grouped attention at the region tower's f = 8 shapes
+                (both of its kernels) beside torch's
+                scaled_dot_product_attention; the profiler's names of the
+                kernels that ran; and one step each of the train and
+                fine-tune runs split into towers, loss, backward and
+                optimizer, and by kernel with the profiler.
 Phase 3 also holds the backward kernels at the f = 8 shapes (32 x 32 items,
-(Ls, Lq) = (240, 99) and (99, 240)) and the grouped-attention kernel at the
-region tower's f = 8 shapes against their plain versions, and an
-attention-op phase drives `grouped_attention_fused` (forward and backward)
-at those shapes, its launch count reset just before and read just after.
+(Ls, Lq) = (240, 99) and (99, 240)) and the grouped-attention kernels at the
+region tower's f = 8 shapes and at a shape on each side of their dispatch
+against their plain versions, and an attention-op phase drives
+`grouped_attention_fused` (forward and backward) at those shapes, its launch
+counts reset just before and read just after.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -90,11 +95,24 @@ SMOKE_MC_CFG = ROOT / "configs" / "smoke" / "synthetic_mc.json"
 # everything, and full attention
 ATTN_SHAPES = {"space": (3072, 30, 31), "time": (11520, 8, 9), "cls": (384, 1, 241),
                "full": (384, 241, 241)}
+# one group shape on each side of the attention kernels' dispatch in bf16
+# (ops/attention_kernel.kernel_path: the head width): hd = 48 takes the
+# FFMA kernel, hd = 128 the mma kernel
+ATTN_DISPATCH_SIDES = {"full hd=48": ((64, 241, 241), 48), "full hd=128": ((64, 241, 241), 128)}
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, dense bf16 on the tensor cores, and device-memory bandwidth
+# cores, dense TF32 and bf16 on the tensor cores, and device-memory
+# bandwidth. An f32-mode kernel's operation bound is 3 TF32 passes (the
+# 3xTF32 products that hold f32 accuracy) at the TF32 peak; the f32 FFMA
+# figure is printed beside it
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# this kernel's times in the previous design (FFMA products), read on an
+# H100 80GB HBM3 at 700 W with this script: printed beside the new ones
+PREV_MS = {"xattn_sim_fwd serve": 2777.7, "grouped_attention full": 2.099,
+           "grouped_attention four shapes": 2.441}
 # kernel vs plain (both f32, summation order only): 'prob' is smooth, so
 # 1e-4; focal 'equal' thresholds at the row mean, and a position within
 # rounding of it can fall on either side — that moves one of Lq cosines by
@@ -329,15 +347,15 @@ def phase_kernels_train(device, n: int = 128, regions: int = 30, seed: int = 2) 
     return worst
 
 
-def _attn_inputs(shape, dtype, device, seed: int):
+def _attn_inputs(shape, dtype, device, seed: int, hd: int = 64):
     """q (scaled by hd^-0.5), k, v in `dtype` and an f32 bias of 0 / -100
     for one grouped-attention shape; the first key of every group (the CLS
     key) visible, and group 1 masked throughout."""
     g, lq, lk = shape
     gen = torch.Generator().manual_seed(seed)
-    q = torch.randn(g, lq, 64, generator=gen) * 64 ** -0.5
-    k = torch.randn(g, lk, 64, generator=gen)
-    v = torch.randn(g, lk, 64, generator=gen)
+    q = torch.randn(g, lq, hd, generator=gen) * hd ** -0.5
+    k = torch.randn(g, lk, hd, generator=gen)
+    v = torch.randn(g, lk, hd, generator=gen)
     bias = ((torch.rand(g, lk, generator=gen) > 0.2).float() - 1.0) * 100.0
     bias[:, 0] = 0.0
     bias[1] = -100.0
@@ -346,19 +364,29 @@ def _attn_inputs(shape, dtype, device, seed: int):
 
 def phase_kernels_attention(device) -> float:
     """grouped_attention against grouped_attention_plain at the region
-    tower's f = 8 shapes, f32 and bf16; returns the worst max abs error."""
+    tower's f = 8 shapes, f32 and bf16, and at a bf16 shape on each side of
+    the dispatch; each case names the kernel it ran. Returns the worst max
+    abs error."""
     from demovlp_tpu_torch.ops import attention_kernel as ak
 
+    cases = [(f"{name} {mode}", shape, 64, dtype)
+             for mode, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))
+             for name, shape in ATTN_SHAPES.items()]
+    cases += [(f"{name} bf16", shape, hd, torch.bfloat16)
+              for name, (shape, hd) in ATTN_DISPATCH_SIDES.items()]
     worst = 0.0
-    for mode, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for name, shape in ATTN_SHAPES.items():
-            args = _attn_inputs(shape, dtype, device, seed=10)
-            got = ak.grouped_attention(*args)
-            want = ak.grouped_attention_plain(*args)
-            if got.dtype != dtype:
-                fail(f"grouped_attention {name} {mode}: result dtype {got.dtype}")
-            worst = max(worst, check_rel(f"grouped_attention {name} G,Lq,Lk={shape} {mode}",
-                                         got, want, TOL_ATTN[mode]))
+    for name, shape, hd, dtype in cases:
+        mode = "bf16" if dtype == torch.bfloat16 else "f32"
+        args = _attn_inputs(shape, dtype, device, seed=10, hd=hd)
+        path = ak.kernel_path(dtype, hd)
+        before = ak.LAUNCHES[path]
+        got = ak.grouped_attention(*args)
+        want = ak.grouped_attention_plain(*args)
+        if got.dtype != dtype or ak.LAUNCHES[path] != before + 1:
+            fail(f"grouped_attention {name}: result dtype {got.dtype}, or the {path} kernel "
+                 "did not run")
+        worst = max(worst, check_rel(f"grouped_attention {name} G,Lq,Lk={shape} hd={hd} "
+                                     f"({path} kernel)", got, want, TOL_ATTN[mode]))
     return worst
 
 
@@ -381,10 +409,11 @@ def phase_attention_op(device) -> int:
     torch.cuda.synchronize()
     launches = ak.LAUNCHES[ak.KERNEL]
     log(f"[attention-op] grouped_attention_fused forward + backward at {list(ATTN_SHAPES)}: "
-        f"kernel launches {launches}")
-    if launches != len(ATTN_SHAPES) or not grads_ok:
-        fail(f"the op path launched the kernel {launches} times (expected "
-             f"{len(ATTN_SHAPES)}) or gave non-finite gradients")
+        f"kernel launches {launches} (grouped_attention_mma_kernel {ak.LAUNCHES[ak.MMA]}, "
+        f"grouped_attention_kernel {ak.LAUNCHES[ak.FFMA]})")
+    if launches != len(ATTN_SHAPES) or ak.LAUNCHES[ak.MMA] != launches or not grads_ok:
+        fail(f"the op path launched the kernels {dict(ak.LAUNCHES)} times (expected "
+             f"{len(ATTN_SHAPES)} of the mma kernel in bf16) or gave non-finite gradients")
     return launches
 
 
@@ -436,8 +465,9 @@ def phase_serve(tmp: Path):
         f"= {n / rec['embed_s']:.1f} videos/s; sims + top-10 {rec['sims_s']:.3f}s; "
         f"wall {wall:.3f}s; peak device memory {peak / 2**30:.3f} GiB")
     log(f"[serve] kernel launches in this run: {launches}")
-    if launches[xk.KERNEL] < 1:
-        fail("the serving path launched no xattn_sim_fwd kernel")
+    if launches[xk.KERNEL] != 2:
+        fail(f"the serving path launched the f32 forward {launches[xk.KERNEL]} times "
+             "(expected 2: one a direction)")
     if n != 1000:
         fail(f"expected 1000 gallery videos, got {n}")
     shapes = {k: v.shape for k, v in cat.items()}
@@ -893,6 +923,27 @@ def _bound(flops: float, nbytes: float, peak: float):
     return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
 
 
+def _mode_peak(bf16: bool):
+    """(effective peak, text) for the operation bound of a kernel mode: bf16
+    products at the bf16 tensor-core peak; f32 as TF32_PASSES TF32 passes
+    at the TF32 peak, with the f32 FFMA peak's bound named beside it."""
+    if bf16:
+        return PEAK_BF16_FLOPS, f"{PEAK_BF16_FLOPS:.3g}/s bf16"
+    return PEAK_TF32_FLOPS / TF32_PASSES, (f"{TF32_PASSES} x TF32 at {PEAK_TF32_FLOPS:.3g}/s; "
+                                           f"f32 FFMA {PEAK_F32_FLOPS:.3g}/s")
+
+
+def _kernel_names(fn) -> list:
+    """Names of the CUDA kernels one call of fn launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")})
+
+
 def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device):
     """The forward and the two backward kernels on a train run's first
     batch's local embeddings (rounded to bf16 in bf16 mode, as the loss
@@ -904,7 +955,7 @@ def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device):
     l_o, l_t = rnd(inputs["l_o"]), rnd(inputs["l_t"])
     o_m, t_m = inputs["o_mask"], inputs["t_mask"]
     eq = focal_equal
-    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    peak, peak_text = _mode_peak(bf16)
     fwd = xk.KERNEL_BF16 if bf16 else xk.KERNEL
     g = torch.randn(l_o.shape[0], l_t.shape[0],
                     generator=torch.Generator().manual_seed(5)).to(device)
@@ -936,9 +987,10 @@ def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device):
             rows[name]["plain_ms"] += plain_ms
             rows[name]["bound_ms"] += bound_ms
             rows[name]["bound_by"] = by
+            ffma = "" if bf16 else f"; f32 FFMA bound {1e3 * flops / PEAK_F32_FLOPS:.4f} ms"
             log(f"[timing] {tag} {name} {direction} {bc}x{bq} Ls={ls} Lq={lq} D={d}: kernel "
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {by} "
-                f"({flops:.3e} flop at {peak:.3g}/s, {nbytes:.3e} B), "
+                f"({flops:.3e} flop at {peak_text}, {nbytes:.3e} B{ffma}), "
                 f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
     for name, r in rows.items():
         log(f"[timing] {tag} {name}: {r['ms']:.3f} ms per step (two launches, "
@@ -975,8 +1027,12 @@ def phase_timing_attention(device) -> dict:
 
     from demovlp_tpu_torch.ops import attention_kernel as ak
 
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bound_by="bytes")
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bound_by="bytes",
+                 other_ms=0.0)
     worst_bound = 0.0
+    path = ak.kernel_path(torch.bfloat16, 64)
+    other = ak.FFMA if path == ak.MMA else ak.MMA
+    kernel_name = {ak.MMA: "grouped_attention_mma_kernel", ak.FFMA: "grouped_attention_kernel"}
     for name, shape in ATTN_SHAPES.items():
         g, lq, lk = shape
         hd = 64
@@ -985,6 +1041,8 @@ def phase_timing_attention(device) -> dict:
         args = [_attn_inputs(shape, torch.bfloat16, device, seed=20 + i) for i in range(copies)]
         masked = [(q, k, v, b[:, None, :].to(q.dtype)) for q, k, v, b in args]
         ms = timed_rotating(ak.grouped_attention, args, reps=20)
+        other_ms = timed_rotating(lambda *a: ak.grouped_attention_kernel(*a, path=other), args,
+                                  reps=20)
         plain_ms = timed_rotating(ak.grouped_attention_plain, args, reps=5)
         lib_ms = timed_rotating(lambda q, k, v, m: sdpa(q, k, v, attn_mask=m, scale=1.0),
                                 masked, reps=20)
@@ -993,20 +1051,31 @@ def phase_timing_attention(device) -> dict:
                          - ak.grouped_attention_plain(*args[0]).float()).abs().max())
         flops = 4.0 * g * lq * lk * hd
         bound_ms, by = _bound(flops, per_call, PEAK_BF16_FLOPS)
+        prev = f", previous design {PREV_MS['grouped_attention full']} ms" if name == "full" else ""
         log(f"[timing] grouped_attention {name} G={g} Lq={lq} Lk={lk} hd={hd} bf16: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+            f"{ms:.4f} ms ({kernel_name[path]}{prev}), {kernel_name[other]} {other_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
             f"(max |diff| to plain {lib_err:.2e}), bound {bound_ms:.4f} ms by {by} "
             f"({flops:.3e} flop, {per_call:.3e} B, {copies} input copies rotated), "
             f"{per_call / ms / 1e6:.1f} GB/s achieved")
         total["ms"] += ms
+        total["other_ms"] += other_ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += bound_ms
         total["library_ms"] += lib_ms
         if bound_ms > worst_bound:
             worst_bound, total["bound_by"] = bound_ms, by
     log(f"[timing] grouped_attention, one tower layer's four shapes: kernel {total['ms']:.4f} "
-        f"ms, plain {total['plain_ms']:.4f} ms, scaled_dot_product_attention "
-        f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms")
+        f"ms ({kernel_name[path]}; previous design "
+        f"{PREV_MS['grouped_attention four shapes']} ms), {kernel_name[other]} "
+        f"{total['other_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {total['library_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms")
+    q, k, v, b = _attn_inputs(ATTN_SHAPES["full"], torch.bfloat16, device, seed=20)
+    names = _kernel_names(lambda: ak.grouped_attention(q, k, v, b))
+    log(f"[timing] grouped_attention full bf16, profiler: device kernels {names}")
+    if not any(kernel_name[path] in n for n in names):
+        fail(f"the profiler did not see {kernel_name[path]} run: {names}")
     return total
 
 
@@ -1101,18 +1170,25 @@ def phase_timing(cat, device):
         want, plain_ms = timed(lambda: xk.direction_sim_plain(ctx, qry, cm, 20.0, True), reps=1)
         flops = 4.0 * bc * bq * lq * ls * d
         nbytes = 4.0 * (bc * ls * d + bq * lq * d + bc * ls + bc * bq)
-        op_ms, byte_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES
-        bound_ms = max(op_ms, byte_ms)
-        total["bound_by"] = "operations" if op_ms >= byte_ms else "bytes"
+        peak, peak_text = _mode_peak(False)
+        bound_ms, total["bound_by"] = _bound(flops, nbytes, peak)
         err = check_close(f"{bc}x{bq} {direction} equal (main path inputs)", got, want, "equal")
         log(f"[timing] {direction} {bc}x{bq} Ls={ls} Lq={lq} D={d}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({flops:.3e} flop at "
-            f"{PEAK_F32_FLOPS:.3g}/s: {op_ms:.3f} ms; {nbytes:.3e} B at {PEAK_BYTES:.2e} B/s: "
-            f"{byte_ms:.3f} ms), {flops / ms / 1e9:.2f} TFLOP/s achieved")
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by {total['bound_by']} "
+            f"({flops:.3e} flop at {peak_text}: {1e3 * flops / PEAK_F32_FLOPS:.3f} ms; "
+            f"{nbytes:.3e} B at {PEAK_BYTES:.2e} B/s: {1e3 * nbytes / PEAK_BYTES:.3f} ms), "
+            f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
         total["ms"] += ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += bound_ms
         total["err"] = max(total["err"], err)
+    log(f"[timing] xattn_sim_fwd, one serve's local sims (both directions): kernel "
+        f"{total['ms']:.1f} ms (previous design {PREV_MS['xattn_sim_fwd serve']} ms), plain "
+        f"{total['plain_ms']:.1f} ms, bound {total['bound_ms']:.1f} ms")
+    names = _kernel_names(lambda: xk.direction_sim(l_o[:64], l_t[:64], o_m[:64], 20.0, True))
+    log(f"[timing] xattn_sim_fwd f32, profiler: device kernels {names}")
+    if not any("xattn_sim_fwd_tf32_kernel" in n for n in names):
+        fail(f"the profiler did not see xattn_sim_fwd_tf32_kernel run: {names}")
     return total
 
 
@@ -1158,7 +1234,7 @@ def main() -> None:
         "source": src + "xattn_sim_fwd.cu",
         # one count per direction runs three __global__ kernels
         "launch": "l2norm_rows_kernel (context rows), l2norm_rows_kernel "
-                  "(query rows), xattn_sim_fwd_kernel<false>",
+                  "(query rows), xattn_sim_fwd_tf32_kernel",
         "replaces": "demovlp_tpu/ops/pallas_xattn.py:91",
         "launches": serve_launches,
         "max_abs_err": max(err_small, t["err"]),
@@ -1168,7 +1244,9 @@ def main() -> None:
         "bound_by": t["bound_by"],
         "library_ms": None,
     }]
-    sources = {xk.KERNEL_BF16: ("xattn_sim_fwd.cu", "xattn_sim_fwd_kernel<true>",
+    sources = {xk.KERNEL: ("xattn_sim_fwd.cu", "xattn_sim_fwd_tf32_kernel",
+                           "demovlp_tpu/ops/pallas_xattn.py:91"),
+               xk.KERNEL_BF16: ("xattn_sim_fwd.cu", "xattn_sim_fwd_kernel<true>",
                                 "demovlp_tpu/ops/pallas_xattn.py:91 (mxu_bf16 mode)"),
                xk.KERNEL_DQ: ("xattn_sim_bwd.cu", "xattn_sim_bwd_dq_kernel",
                               "demovlp_tpu/ops/pallas_xattn.py:373"),
@@ -1177,7 +1255,7 @@ def main() -> None:
     for name, (file, main_kernel, replaces) in sources.items():
         for suffix, rows, launches, errs in (("", tt, train_launches, err_train),
                                              ("_f8", tf8, ft_launches, err_f8)):
-            if name not in rows:  # the f = 8 run's forward is the f32 mode
+            if name not in rows:  # f = 1 trains the bf16 forward, f = 8 the f32 one
                 continue
             r = rows[name]
             kernels.append({
@@ -1199,7 +1277,7 @@ def main() -> None:
         "name": "grouped_attention",
         "route": "cuda",
         "source": src + "grouped_attention.cu",
-        "launch": "grouped_attention_kernel<__nv_bfloat16>",
+        "launch": "grouped_attention_mma_kernel<64> (bf16, each of the four shapes)",
         "replaces": "demovlp_tpu/ops/pallas_attention.py:28",
         "launches": attn_launches,
         "max_abs_err": err_attn,
@@ -1212,8 +1290,11 @@ def main() -> None:
     log("[timing] xattn_sim_fwd: ms, plain_ms and bound_ms are one serve's local sims "
         "(both directions, 1000x1000 gallery), launches those of the serve; the bf16 forward "
         "and the backward kernels: one train step's two launches at 128x128 (f = 1), launches "
-        "those of the 16-step train run; the _f8 backward rows: one fine-tune step's two "
-        "launches at 32x32 (f = 8, f32 mode), launches those of the 16-step fine-tune run; "
+        "those of the 16-step train run; the _f8 rows (the f32 forward and the backward "
+        "kernels): one fine-tune step's two launches at 32x32 (f = 8, f32 mode), launches those "
+        "of the 16-step fine-tune run (the forward's include validation); an f32-mode bound "
+        f"counts {TF32_PASSES} TF32 passes at {PEAK_TF32_FLOPS:.3g} FLOP/s, a bf16 one the bf16 "
+        "peak; "
         "max_abs_err of the training kernels is the worst of the training-shape checks; the "
         "row-norm kernel's time is included in ms; no single PyTorch call computes the local "
         "similarity, so its library_ms is null. grouped_attention: ms, plain_ms, bound_ms and "

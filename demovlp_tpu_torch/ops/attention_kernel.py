@@ -13,13 +13,21 @@ subtracted, the probabilities cast to v's dtype, the second product
 accumulated in f32 and the result cast to q's dtype; f32 and bf16 inputs.
 
 `grouped_attention` dispatches on the tensor's device: a CPU tensor goes to
-`grouped_attention_plain`, a CUDA tensor to the kernel in
-csrc/grouped_attention.cu (built at first use), anything else raises. The
-kernel takes the group's keys as they are, with no padding, so it follows
-`grouped_attention_xla` where the Pallas wrapper does not: a group whose
-every key has a bias of -1e9 or less averages over its own keys there,
-while the Pallas kernel, which pads Lk to 128 lanes with -1e9, averages
-over the padding too.
+`grouped_attention_plain`, a CUDA tensor to a kernel in
+csrc/grouped_attention.cu (built at first use), anything else raises. Which
+of its two kernels runs is `kernel_path(dtype, hd)`, a function of the
+dtype and the shape alone: `grouped_attention_mma_kernel` (bf16
+`mma.sync` tiles) for bf16 with hd in (32, 64, 128), which on an H100 is
+the faster of the two at every one of the region tower's four shapes;
+`grouped_attention_kernel` (FFMA, one warp a query row) for f32, where
+TF32 products would lose the op's precision, and for other head widths. A path
+that refuses a shape (too many keys for shared memory) raises; nothing
+falls back to the other kernel. Both kernels take the group's keys as they
+are (the mma kernel masks its padding to 16 keys out of the softmax), so
+they follow `grouped_attention_xla` where the Pallas wrapper does not: a
+group whose every key has a bias of -1e9 or less averages over its own keys
+there, while the Pallas kernel, which pads Lk to 128 lanes with -1e9,
+averages over the padding too.
 
 As in the JAX package this op is not a model option: `ObjectTransformer`
 runs its own "dense" and "xla" forms, and `attn_impl: "pallas"` is
@@ -34,17 +42,32 @@ import torch
 from demovlp_tpu_torch.ops import cuda_build
 
 KERNEL = "grouped_attention"
+FFMA = "ffma"  # grouped_attention_kernel
+MMA = "mma"  # grouped_attention_mma_kernel
+_ENTRY = {FFMA: "grouped_attention", MMA: "grouped_attention_mma"}
+MMA_HEAD_DIMS = (32, 64, 128)
 
 #: launcher calls since the last reset (callers reset it around the run
-#: they want to read); one count is one grouped_attention_kernel launch
-LAUNCHES = {KERNEL: 0}
+#: they want to read); one count of KERNEL is one launch of either kernel,
+#: and the FFMA / MMA counts say which ran
+LAUNCHES = {KERNEL: 0, FFMA: 0, MMA: 0}
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = {
+    FFMA: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    MMA: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES[KERNEL] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def kernel_path(dtype: torch.dtype, hd: int) -> str:
+    """MMA for bf16 with a head width the mma kernel is built for; FFMA for
+    f32 (TF32 products would lose the op's precision) and other widths."""
+    return MMA if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS else FFMA
 
 
 def grouped_attention_plain(q, k, v, bias):
@@ -73,29 +96,37 @@ def _check(q, k, v, bias):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def grouped_attention_kernel(q, k, v, bias):
-    """The kernel on CUDA tensors (no autograd); bias is taken as f32."""
+def grouped_attention_kernel(q, k, v, bias, path: str | None = None):
+    """A kernel on CUDA tensors (no autograd); bias is taken as f32. `path`
+    (FFMA or MMA) overrides `kernel_path`, for tests of one kernel."""
     bias = bias.float().contiguous()
     _check(q, k, v, bias)
     g, lq, hd = q.shape
     lk = k.shape[1]
+    path = path or kernel_path(q.dtype, hd)
+    if path == MMA and (q.dtype != torch.bfloat16 or hd not in MMA_HEAD_DIMS):
+        raise ValueError(f"the mma kernel takes bf16 with hd in {MMA_HEAD_DIMS}: "
+                         f"{q.dtype}, hd={hd}")
     out = torch.empty_like(q)
     if g == 0 or lq == 0:
         return out
-    fn = getattr(cuda_build.load(KERNEL), KERNEL)
+    fn = getattr(cuda_build.load(KERNEL), _ENTRY[path])
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[path]
         fn.restype = ctypes.c_int
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            g, lq, lk, hd]
+    if path == FFMA:
+        args.append(int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 g, lq, lk, hd, int(q.dtype == torch.bfloat16), stream)
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         # cudaErrorInvalidValue (1): one group's keys and values do not fit
-        # one block's shared memory
-        raise RuntimeError(f"grouped_attention launch failed (Lk={lk}, hd={hd}): "
+        # one block's shared memory (each kernel has its own limit)
+        raise RuntimeError(f"grouped_attention ({path}) launch failed (Lk={lk}, hd={hd}): "
                            f"cudaError_t {err}")
     LAUNCHES[KERNEL] += 1
+    LAUNCHES[path] += 1
     return out
 
 

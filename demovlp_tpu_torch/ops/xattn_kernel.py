@@ -18,7 +18,9 @@ from ops/xattn.py only on degenerate rows:
   * the cosine is against the raw query, num / max(|w| |q|, eps), and the
     mean divides by Lq.
 
-Two modes. f32: every product in f32. bf16 (the TPU kernel's `mxu_bf16`,
+Two modes. f32: every product in f32 (on the card 3xTF32 tensor-core
+products, which agree with f32 products to about 3e-7 of the largest sim;
+tests/test_torch_tc_numerics.py emulates them). bf16 (the TPU kernel's `mxu_bf16`,
 training's local loss with `local_dtype: "bfloat16"`): the inputs are
 rounded to bf16 before the row norms (the wrappers take them as f32 tensors
 holding bf16 values), every product operand is rounded to bf16 and
@@ -45,7 +47,8 @@ _BLOCK = 64  # items a side in one block pair of the plain versions
 #: launcher calls since the last reset (compare launches are counted too;
 #: callers reset it around the run they want to read). A forward count is
 #: one direction: l2norm_rows_kernel over the context rows and over the
-#: query rows, then xattn_sim_fwd_kernel. A backward count is the same two
+#: query rows, then xattn_sim_fwd_tf32_kernel (f32 mode) or
+#: xattn_sim_fwd_kernel<true> (bf16 mode). A backward count is the same two
 #: row-norm launches, then xattn_sim_bwd_dq_kernel or xattn_sim_bwd_dc_kernel.
 LAUNCHES = {KERNEL: 0, KERNEL_BF16: 0, KERNEL_DQ: 0, KERNEL_DC: 0}
 

@@ -225,3 +225,96 @@ def test_kernel_refuses_keys_too_large_for_a_block():
     with pytest.raises(RuntimeError, match="cudaError_t"):
         ak.grouped_attention(*args)
     assert ak.LAUNCHES == before
+
+
+# (dtype, hd) -> kernel: bf16 takes the mma kernel at every shape (it is
+# the faster one at each of the tower's four shapes on an H100); f32 and
+# other head widths the FFMA kernel
+_PATHS = [
+    ((torch.bfloat16, 64), ak.MMA),  # the tower's space, time, CLS and full shapes
+    ((torch.bfloat16, 32), ak.MMA),
+    ((torch.bfloat16, 128), ak.MMA),
+    ((torch.float32, 64), ak.FFMA),  # TF32 would lose the op's precision
+    ((torch.float32, 128), ak.FFMA),
+    ((torch.bfloat16, 48), ak.FFMA),  # a head width the mma kernel lacks
+    ((torch.bfloat16, 256), ak.FFMA),
+    ((torch.bfloat16, 16), ak.FFMA),
+]
+
+
+@pytest.mark.parametrize("case,path", _PATHS,
+                         ids=["bf16-64", "bf16-32", "bf16-128", "f32-64", "f32-128", "hd-48",
+                              "hd-256", "hd-16"])
+def test_kernel_path_depends_on_dtype_and_shape(case, path):
+    assert ak.kernel_path(*case) == path
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64), (torch.bfloat16, 48)],
+                         ids=["f32", "hd-48"])
+def test_mma_path_refuses_what_it_was_not_built_for(dtype, hd):
+    """Checked before anything is built or launched."""
+    args = _torch(*_inputs(g=2, lq=16, lk=32, hd=hd), dtype)
+    before = dict(ak.LAUNCHES)
+    with pytest.raises(ValueError, match="mma kernel"):
+        ak.grouped_attention_kernel(*args, path=ak.MMA)
+    assert ak.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lk", [9, 241, 256])
+@pytest.mark.parametrize("lq", [16, 17, 241])
+def test_mma_kernel_matches_plain_on_card(lq, lk):
+    """The mma kernel at ragged shapes (rows past a 16-row warp tile, keys
+    past a 16-key chunk), bf16, hd = 64, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    q, k, v, bias = _inputs(5, lq, lk, 64, seed=6)
+    q *= 64 ** -0.5
+    bias[1] = -100.0  # a fully masked group
+    args = [t.to(dev) for t in _torch(q, k, v, bias, torch.bfloat16)]
+    before = ak.LAUNCHES[ak.MMA]
+    got = ak.grouped_attention_kernel(*args, path=ak.MMA)
+    want = ak.grouped_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES[ak.MMA] == before + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 128])
+def test_mma_kernel_other_head_widths_on_card(hd):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    q, k, v, bias = _inputs(3, 70, 100, hd, seed=7)
+    q *= hd ** -0.5
+    args = [t.to(dev) for t in _torch(q, k, v, bias, torch.bfloat16)]
+    assert ak.kernel_path(torch.bfloat16, hd) == ak.MMA
+    got = ak.grouped_attention(*args)
+    want = ak.grouped_attention_plain(*args)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_mma_kernel_refuses_keys_too_large_for_a_block():
+    """Lk = 1000 keys of hd = 64 in bf16 take the mma path, whose shared
+    memory holds at most 784 keys at that width (K and V as bf16 plus the
+    bias): the wrapper raises and counts nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    args = [t.to(dev) for t in _torch(*_inputs(2, 16, 1000, 64), torch.bfloat16)]
+    assert ak.kernel_path(torch.bfloat16, 64) == ak.MMA
+    before = dict(ak.LAUNCHES)
+    with pytest.raises(RuntimeError, match=r"\(mma\).*cudaError_t"):
+        ak.grouped_attention(*args)
+    assert ak.LAUNCHES == before

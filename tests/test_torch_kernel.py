@@ -77,6 +77,41 @@ def test_launcher_rejects_a_score_tile_too_large_for_a_block():
     assert xk.LAUNCHES[xk.KERNEL] == before
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])
+@pytest.mark.parametrize("d", [20, 36, 256])
+@pytest.mark.parametrize("ls,lq", [(240, 99), (99, 240), (13, 40), (300, 40)],
+                         ids=["i2t", "t2i", "ragged", "wide"])
+def test_tf32_forward_matches_plain_on_card(ls, lq, d, focal):
+    """The f32 forward (xattn_sim_fwd_tf32_kernel, 3xTF32 products) at
+    ragged shapes: Lq past a 64-row tile, Ls past an 8-column tile and (300)
+    past the 256 columns whose softmax rows a warp keeps in registers, D
+    past the 8-deep chunk and not a multiple of 8 (20, 36). 'prob' within 1e-5
+    of the largest sim (3xTF32 reads about 3e-7 of it on the CPU emulation,
+    tests/test_torch_tc_numerics.py); under 'equal' a near-tie may flip one
+    position of Lq and move a sim by up to 2e-3, in at most 1% of the
+    entries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    ctx, qry, mask = _inputs(6, 5, ls, lq, d, seed=2, device=dev)
+    before = xk.LAUNCHES[xk.KERNEL]
+    got = xk.direction_sim(ctx, qry, mask, 20.0, focal)
+    want = xk.direction_sim_plain(ctx, qry, mask, 20.0, focal)
+    torch.cuda.synchronize()
+    assert xk.LAUNCHES[xk.KERNEL] == before + 1
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    tol = 1e-5 * float(want.abs().max())
+    if focal:
+        assert float((err > tol).float().mean()) <= 0.01 and float(err.max()) <= 2e-3
+    else:
+        assert float(err.max()) <= tol, float(err.max())
+    assert got[0].abs().max().item() == 0.0  # fully masked context: p = 0
+
+
 def _train_like_inputs(bc, bq, ls, lq, d, seed, device):
     """Ragged -100 positions holding zero vectors (inert padding) and one
     fully masked context item."""
