@@ -1027,11 +1027,9 @@ def phase_timing_attention(device) -> dict:
 
     from demovlp_tpu_torch.ops import attention_kernel as ak
 
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bound_by="bytes",
-                 other_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bound_by="bytes")
     worst_bound = 0.0
     path = ak.kernel_path(torch.bfloat16, 64)
-    other = ak.FFMA if path == ak.MMA else ak.MMA
     kernel_name = {ak.MMA: "grouped_attention_mma_kernel", ak.FFMA: "grouped_attention_kernel"}
     for name, shape in ATTN_SHAPES.items():
         g, lq, lk = shape
@@ -1041,8 +1039,6 @@ def phase_timing_attention(device) -> dict:
         args = [_attn_inputs(shape, torch.bfloat16, device, seed=20 + i) for i in range(copies)]
         masked = [(q, k, v, b[:, None, :].to(q.dtype)) for q, k, v, b in args]
         ms = timed_rotating(ak.grouped_attention, args, reps=20)
-        other_ms = timed_rotating(lambda *a: ak.grouped_attention_kernel(*a, path=other), args,
-                                  reps=20)
         plain_ms = timed_rotating(ak.grouped_attention_plain, args, reps=5)
         lib_ms = timed_rotating(lambda q, k, v, m: sdpa(q, k, v, attn_mask=m, scale=1.0),
                                 masked, reps=20)
@@ -1053,13 +1049,12 @@ def phase_timing_attention(device) -> dict:
         bound_ms, by = _bound(flops, per_call, PEAK_BF16_FLOPS)
         prev = f", previous design {PREV_MS['grouped_attention full']} ms" if name == "full" else ""
         log(f"[timing] grouped_attention {name} G={g} Lq={lq} Lk={lk} hd={hd} bf16: kernel "
-            f"{ms:.4f} ms ({kernel_name[path]}{prev}), {kernel_name[other]} {other_ms:.4f} ms, "
+            f"{ms:.4f} ms ({kernel_name[path]}{prev}), "
             f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
             f"(max |diff| to plain {lib_err:.2e}), bound {bound_ms:.4f} ms by {by} "
             f"({flops:.3e} flop, {per_call:.3e} B, {copies} input copies rotated), "
             f"{per_call / ms / 1e6:.1f} GB/s achieved")
         total["ms"] += ms
-        total["other_ms"] += other_ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += bound_ms
         total["library_ms"] += lib_ms
@@ -1067,8 +1062,7 @@ def phase_timing_attention(device) -> dict:
             worst_bound, total["bound_by"] = bound_ms, by
     log(f"[timing] grouped_attention, one tower layer's four shapes: kernel {total['ms']:.4f} "
         f"ms ({kernel_name[path]}; previous design "
-        f"{PREV_MS['grouped_attention four shapes']} ms), {kernel_name[other]} "
-        f"{total['other_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+        f"{PREV_MS['grouped_attention four shapes']} ms), plain {total['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention {total['library_ms']:.4f} ms, bound "
         f"{total['bound_ms']:.4f} ms")
     q, k, v, b = _attn_inputs(ATTN_SHAPES["full"], torch.bfloat16, device, seed=20)
@@ -1246,7 +1240,7 @@ def main() -> None:
     }]
     sources = {xk.KERNEL: ("xattn_sim_fwd.cu", "xattn_sim_fwd_tf32_kernel",
                            "demovlp_tpu/ops/pallas_xattn.py:91"),
-               xk.KERNEL_BF16: ("xattn_sim_fwd.cu", "xattn_sim_fwd_kernel<true>",
+               xk.KERNEL_BF16: ("xattn_sim_fwd.cu", "xattn_sim_fwd_kernel",
                                 "demovlp_tpu/ops/pallas_xattn.py:91 (mxu_bf16 mode)"),
                xk.KERNEL_DQ: ("xattn_sim_bwd.cu", "xattn_sim_bwd_dq_kernel",
                               "demovlp_tpu/ops/pallas_xattn.py:373"),

@@ -96,17 +96,14 @@ def _check(q, k, v, bias):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def grouped_attention_kernel(q, k, v, bias, path: str | None = None):
-    """A kernel on CUDA tensors (no autograd); bias is taken as f32. `path`
-    (FFMA or MMA) overrides `kernel_path`, for tests of one kernel."""
+def grouped_attention_kernel(q, k, v, bias):
+    """The kernel that `kernel_path` picks, on CUDA tensors (no autograd);
+    bias is taken as f32."""
     bias = bias.float().contiguous()
     _check(q, k, v, bias)
     g, lq, hd = q.shape
     lk = k.shape[1]
-    path = path or kernel_path(q.dtype, hd)
-    if path == MMA and (q.dtype != torch.bfloat16 or hd not in MMA_HEAD_DIMS):
-        raise ValueError(f"the mma kernel takes bf16 with hd in {MMA_HEAD_DIMS}: "
-                         f"{q.dtype}, hd={hd}")
+    path = kernel_path(q.dtype, hd)
     out = torch.empty_like(q)
     if g == 0 or lq == 0:
         return out

@@ -48,7 +48,7 @@ _BLOCK = 64  # items a side in one block pair of the plain versions
 #: callers reset it around the run they want to read). A forward count is
 #: one direction: l2norm_rows_kernel over the context rows and over the
 #: query rows, then xattn_sim_fwd_tf32_kernel (f32 mode) or
-#: xattn_sim_fwd_kernel<true> (bf16 mode). A backward count is the same two
+#: xattn_sim_fwd_kernel (bf16 mode). A backward count is the same two
 #: row-norm launches, then xattn_sim_bwd_dq_kernel or xattn_sim_bwd_dc_kernel.
 LAUNCHES = {KERNEL: 0, KERNEL_BF16: 0, KERNEL_DQ: 0, KERNEL_DC: 0}
 

@@ -156,8 +156,10 @@ def test_fused_forward_and_gradients_match_jax_vjp():
         (lambda q, k, v, b: (q, k[:, :-1].contiguous(), v, b), ValueError),
         (lambda q, k, v, b: (q, k, v, b[:, :-1].contiguous()), ValueError),
         (lambda q, k, v, b: (q.transpose(1, 2), k, v, b), ValueError),
+        (lambda q, k, v, b: (q[0], k, v, b), ValueError),
+        (lambda q, k, v, b: (q, k, v.bfloat16(), b), TypeError),
     ],
-    ids=["dtype", "mixed-dtype", "kv-shape", "bias-shape", "contiguity"],
+    ids=["dtype", "mixed-dtype", "kv-shape", "bias-shape", "contiguity", "rank", "v-dtype"],
 )
 def test_kernel_wrapper_checks_arguments(change, err):
     """Checked before anything is built or launched."""
@@ -249,17 +251,6 @@ def test_kernel_path_depends_on_dtype_and_shape(case, path):
     assert ak.kernel_path(*case) == path
 
 
-@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64), (torch.bfloat16, 48)],
-                         ids=["f32", "hd-48"])
-def test_mma_path_refuses_what_it_was_not_built_for(dtype, hd):
-    """Checked before anything is built or launched."""
-    args = _torch(*_inputs(g=2, lq=16, lk=32, hd=hd), dtype)
-    before = dict(ak.LAUNCHES)
-    with pytest.raises(ValueError, match="mma kernel"):
-        ak.grouped_attention_kernel(*args, path=ak.MMA)
-    assert ak.LAUNCHES == before
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("lk", [9, 241, 256])
 @pytest.mark.parametrize("lq", [16, 17, 241])
@@ -275,8 +266,9 @@ def test_mma_kernel_matches_plain_on_card(lq, lk):
     q *= 64 ** -0.5
     bias[1] = -100.0  # a fully masked group
     args = [t.to(dev) for t in _torch(q, k, v, bias, torch.bfloat16)]
+    assert ak.kernel_path(torch.bfloat16, 64) == ak.MMA
     before = ak.LAUNCHES[ak.MMA]
-    got = ak.grouped_attention_kernel(*args, path=ak.MMA)
+    got = ak.grouped_attention(*args)
     want = ak.grouped_attention_plain(*args)
     torch.cuda.synchronize()
     assert ak.LAUNCHES[ak.MMA] == before + 1
