@@ -53,14 +53,18 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 beside it) and beside its previous design's time: the
                 serving forward, the training kernels at f = 1 and the
                 forward and backward kernels at f = 8 (the fine-tune's first
-                batch), grouped attention at the region tower's f = 8 shapes
+                batch; each backward beside its one-block-an-item time, with
+                the split S it chose and the kernels the profiler saw),
+                grouped attention at the region tower's f = 8 shapes
                 (both of its kernels) beside torch's
                 scaled_dot_product_attention; the profiler's names of the
                 kernels that ran; and one step each of the train and
                 fine-tune runs split into towers, loss, backward and
                 optimizer, and by kernel with the profiler.
 Phase 3 also holds the backward kernels at the f = 8 shapes (32 x 32 items,
-(Ls, Lq) = (240, 99) and (99, 240)) and the grouped-attention kernels at the
+(Ls, Lq) = (240, 99) and (99, 240)), and at 40 x 37 items where the partner
+loop is split raggedly over S blocks an item (resident and workspace
+layouts, both modes), and the grouped-attention kernels at the
 region tower's f = 8 shapes and at a shape on each side of their dispatch
 against their plain versions, and an attention-op phase drives
 `grouped_attention_fused` (forward and backward) at those shapes, its launch
@@ -113,6 +117,17 @@ PEAK_BYTES = 3.35e12
 # H100 80GB HBM3 at 700 W with this script: printed beside the new ones
 PREV_MS = {"xattn_sim_fwd serve": 2777.7, "grouped_attention full": 2.099,
            "grouped_attention four shapes": 2.441}
+# the backward kernels' times a step before their partner loop was split
+# over blocks (one block an item), read the same way: printed beside the
+# new ones, keyed by the timing tag and kernel name
+PREV_BWD_MS = {("train", "xattn_sim_bwd_dq"): 40.897, ("train", "xattn_sim_bwd_dc"): 42.672,
+               ("finetune f=8", "xattn_sim_bwd_dq"): 44.847,
+               ("finetune f=8", "xattn_sim_bwd_dc"): 56.957}
+# a backward case whose split is ragged: 40 contexts x 37 queries (items
+# below the card's slots, so each item's partners are split over S blocks,
+# and 37 is no multiple of d_context's S), at the f = 1 pre-training and
+# the f = 8 fine-tune lengths (resident and workspace layouts)
+SPLIT_CASES = {"resident": (40, 37, 30, 99), "workspace": (40, 37, 240, 99)}
 # kernel vs plain (both f32, summation order only): 'prob' is smooth, so
 # 1e-4; focal 'equal' thresholds at the row mean, and a position within
 # rounding of it can fall on either side — that moves one of Lq cosines by
@@ -344,6 +359,46 @@ def phase_kernels_train(device, n: int = 128, regions: int = 30, seed: int = 2) 
                     fail(f"{tag}: a fully masked context item must get a zero gradient")
     log(f"[kernels] training shapes {n}x{n}, {regions} regions: backward kernels "
         "bit-identical on rerun in every case")
+    return worst
+
+
+def phase_kernels_splits(device) -> dict:
+    """The backward kernels where each item's partners are split raggedly
+    over S blocks (SPLIT_CASES), both modes, focal 'equal', against the
+    plain backward at TOL_TRAIN; bit-identical reruns, a fully masked item's
+    zero gradient. The worst max abs error of each kernel is returned."""
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    worst = {xk.KERNEL_DQ: 0.0, xk.KERNEL_DC: 0.0}
+    for layout, (bc, bq, ls, lq) in SPLIT_CASES.items():
+        ctx, cmask = _train_inputs(40, bc, ls, 256, device)
+        qry, _ = _train_inputs(41, bq, lq, 256, device)
+        g = torch.randn(bc, bq, generator=torch.Generator().manual_seed(42)).to(device)
+        for mode in ("f32", "bf16"):
+            bf16 = mode == "bf16"
+            c, q = (xk.round_bf16(ctx), xk.round_bf16(qry)) if bf16 else (ctx, qry)
+            plan = {k: xk.backward_plan(k, c, q, bf16) for k in (xk.KERNEL_DQ, xk.KERNEL_DC)}
+            s_dc = plan[xk.KERNEL_DC][0]
+            if s_dc < 2 or bq % s_dc == 0:
+                fail(f"split case {layout}: d_context's S = {s_dc} does not split {bq} "
+                     "partners raggedly")
+            tag = (f"split {bc}x{bq} Ls={ls} Lq={lq} {layout} {mode} (S, slots: d_query "
+                   f"{plan[xk.KERNEL_DQ]}, d_context {plan[xk.KERNEL_DC]})")
+            bargs = (c, q, cmask, g, 20.0, True, bf16)
+            dc, dq = xk.direction_sim_bwd(*bargs)
+            dc2, dq2 = xk.direction_sim_bwd(*bargs)
+            pdc, pdq = xk.direction_sim_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            if not (torch.equal(dc, dc2) and torch.equal(dq, dq2)):
+                fail(f"{tag}: two backward runs differ (no atomics: must be bit-identical)")
+            flip = (TOL_TRAIN_FLIP, MAX_TRAIN_FLIP_SHARE)
+            worst[xk.KERNEL_DC] = max(worst[xk.KERNEL_DC], check_rel(
+                f"{tag} d_context", dc, pdc, TOL_TRAIN[mode], *flip))
+            worst[xk.KERNEL_DQ] = max(worst[xk.KERNEL_DQ], check_rel(
+                f"{tag} d_query", dq, pdq, TOL_TRAIN[mode], *flip))
+            if float(dc[1].abs().max()) != 0.0:
+                fail(f"{tag}: a fully masked context item must get a zero gradient")
+    log("[kernels] ragged splits: backward kernels bit-identical on rerun in every case")
     return worst
 
 
@@ -992,10 +1047,25 @@ def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device):
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {by} "
                 f"({flops:.3e} flop at {peak_text}, {nbytes:.3e} B{ffma}), "
                 f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+        splits = {k: xk.backward_plan(k, ctx, qry, bf16) for k in (xk.KERNEL_DQ, xk.KERNEL_DC)}
+        # two calls: a trace can miss a kernel of a single call (the launch
+        # counts, not the profiler, show that the kernels ran)
+        names = _kernel_names(lambda: [xk.direction_sim_bwd(*bargs) for _ in range(2)])
+        unseen = [k + sfx for k in (xk.KERNEL_DQ, xk.KERNEL_DC)
+                  for sfx in ("_kernel", "_reduce_kernel")
+                  if not any(k + sfx + "<" in n or k + sfx + "(" in n for n in names)]
+        log(f"[timing] {tag} backward {direction}: (S, slots) d_query {splits[xk.KERNEL_DQ]}, "
+            f"d_context {splits[xk.KERNEL_DC]}; profiler: device kernels {names}"
+            + (f"; not in the trace: {unseen}" if unseen else ""))
+        for k in (xk.KERNEL_DQ, xk.KERNEL_DC):
+            rows[k].setdefault("splits", []).append(splits[k][0])
     for name, r in rows.items():
+        prev = PREV_BWD_MS.get((tag, name))
+        prev = (f"; one block an item (S = 1, no reduce) {prev} ms, now S = {r['splits']}"
+                if prev else "")
         log(f"[timing] {tag} {name}: {r['ms']:.3f} ms per step (two launches, "
             f"{r['ms'] / 2:.3f} ms per launch), plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}{prev}")
     log("[timing] the plain backward computes d_context and d_query together: its time "
         "stands beside both backward kernels")
     return rows
@@ -1196,6 +1266,10 @@ def main() -> None:
     err_small = phase_kernels(device)
     err_train = phase_kernels_train(device)
     err_f8 = phase_kernels_train(device, n=32, regions=240, seed=30)
+    err_split = phase_kernels_splits(device)
+    for errs in (err_train, err_f8):
+        for k, v in err_split.items():
+            errs[k] = max(errs[k], v)
     err_attn = phase_kernels_attention(device)
     attn_launches = phase_attention_op(device)
     out_dir = ROOT / "chiprun_out" / "chip_smoke"
@@ -1242,9 +1316,11 @@ def main() -> None:
                            "demovlp_tpu/ops/pallas_xattn.py:91"),
                xk.KERNEL_BF16: ("xattn_sim_fwd.cu", "xattn_sim_fwd_kernel",
                                 "demovlp_tpu/ops/pallas_xattn.py:91 (mxu_bf16 mode)"),
-               xk.KERNEL_DQ: ("xattn_sim_bwd.cu", "xattn_sim_bwd_dq_kernel",
+               xk.KERNEL_DQ: ("xattn_sim_bwd.cu", "xattn_sim_bwd_dq_kernel on (items, S) "
+                              "blocks, xattn_sim_bwd_dq_reduce_kernel",
                               "demovlp_tpu/ops/pallas_xattn.py:373"),
-               xk.KERNEL_DC: ("xattn_sim_bwd.cu", "xattn_sim_bwd_dc_kernel",
+               xk.KERNEL_DC: ("xattn_sim_bwd.cu", "xattn_sim_bwd_dc_kernel on (items, S) "
+                              "blocks, xattn_sim_bwd_dc_reduce_kernel",
                               "demovlp_tpu/ops/pallas_xattn.py:413")}
     for name, (file, main_kernel, replaces) in sources.items():
         for suffix, rows, launches, errs in (("", tt, train_launches, err_train),
@@ -1289,7 +1365,8 @@ def main() -> None:
         "of the 16-step fine-tune run (the forward's include validation); an f32-mode bound "
         f"counts {TF32_PASSES} TF32 passes at {PEAK_TF32_FLOPS:.3g} FLOP/s, a bf16 one the bf16 "
         "peak; "
-        "max_abs_err of the training kernels is the worst of the training-shape checks; the "
+        "max_abs_err of the training kernels is the worst of the training-shape checks (the "
+        "backward kernels' with the ragged-split checks); the "
         "row-norm kernel's time is included in ms; no single PyTorch call computes the local "
         "similarity, so its library_ms is null. grouped_attention: ms, plain_ms, bound_ms and "
         "library_ms (scaled_dot_product_attention) summed over one tower layer's four grouped "

@@ -179,6 +179,18 @@ def local_score_args(config: Dict[str, Any]) -> Dict:
     }
 
 
+def refuse_unported_keys(config: Dict[str, Any]) -> None:
+    """Raise on the train settings the JAX trainers read and the port does
+    not: text trimmed to `trainer.text_buckets` (it changes the local and
+    QA losses) and the MLM objective (`mlm.weight` > 0). Absent, empty or 0
+    trains as before."""
+    if (config.get("trainer", {}) or {}).get("text_buckets"):
+        raise NotImplementedError("trainer.text_buckets (text trimmed to length buckets) "
+                                  "is not ported")
+    if float((config.get("mlm", {}) or {}).get("weight", 0.0)) > 0:
+        raise NotImplementedError("mlm.weight > 0 (the MLM objective) is not ported")
+
+
 def run_trainer(trainer_cls, description: str, val_split: str,
                 argv: Optional[Sequence[str]] = None, fence_steps: bool = False):
     """A train CLI: parse the command line, build everything from the
@@ -187,6 +199,7 @@ def run_trainer(trainer_cls, description: str, val_split: str,
     args = build_train_argparser(description).parse_args(argv)
     device = resolve_device(args.device)
     config = apply_overrides(read_config(args.config), args)
+    refuse_unported_keys(config)
     torch.manual_seed(args.seed)  # dropout
     cfg_trainer = config["trainer"]
     save_dir = make_run_dir(config)

@@ -31,6 +31,7 @@ kernel's cotangent takes the primal's bf16 dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -49,7 +50,9 @@ _BLOCK = 64  # items a side in one block pair of the plain versions
 #: one direction: l2norm_rows_kernel over the context rows and over the
 #: query rows, then xattn_sim_fwd_tf32_kernel (f32 mode) or
 #: xattn_sim_fwd_kernel (bf16 mode). A backward count is the same two
-#: row-norm launches, then xattn_sim_bwd_dq_kernel or xattn_sim_bwd_dc_kernel.
+#: row-norm launches, then xattn_sim_bwd_dq_kernel and
+#: xattn_sim_bwd_dq_reduce_kernel, or xattn_sim_bwd_dc_kernel and
+#: xattn_sim_bwd_dc_reduce_kernel.
 LAUNCHES = {KERNEL: 0, KERNEL_BF16: 0, KERNEL_DQ: 0, KERNEL_DC: 0}
 
 
@@ -229,9 +232,10 @@ _ARGTYPES = {
     # passed as a 32-bit int and cut the pointer
     "xattn_sim_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "xattn_sim_bwd_dq": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "xattn_sim_bwd_workspace": [ctypes.c_int] * 3,
+    "xattn_sim_bwd_dq": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "xattn_sim_bwd_workspace": [ctypes.c_int] * 4,
+    "xattn_sim_bwd_blocks_per_sm": [ctypes.c_int] * 5,
 }
 _ARGTYPES["xattn_sim_bwd_dc"] = _ARGTYPES["xattn_sim_bwd_dq"]
 _RESTYPES = {"xattn_sim_bwd_workspace": ctypes.c_longlong}
@@ -276,9 +280,56 @@ def _launch(context, query, ctx_mask, lam: float, focal_equal: bool, mxu_bf16: b
     return out
 
 
+_MAX_SPLITS = 65535  # the grid's y extent
+
+
+@functools.lru_cache(maxsize=None)
+def backward_splits(items: int, partners: int, slots: int) -> int:
+    """S, the number of blocks that share one output item's partners in a
+    backward kernel: the smallest S that minimises the pair-steps on the
+    busiest slot, ceil(items * S / slots) * ceil(partners / S), where
+    `slots` is the number of blocks the card runs at once (SMs x resident
+    blocks a SM). S stays within one wave (items * S <= slots; S = 1 where
+    the items alone fill the slots), within the partners and within the
+    grid's 65535: past one wave the step count can still fall by the last
+    wave's imbalance (125 against 128 steps at 128 items and partners on
+    132 slots, with S = 128), while every block adds a partial slice to
+    write and to reduce."""
+    top = max(1, min(partners, _MAX_SPLITS, slots // max(items, 1)))
+    # min keeps the first of equal step counts: the smallest S
+    return min(range(1, top + 1), key=lambda s: -(-items * s // slots) * -(-partners // s))
+
+
+_SLOTS = {}  # (device index, name, Ls, Lq, D, bf16) -> blocks the card runs at once
+
+
+def backward_plan(name: str, context, query, mxu_bf16: bool) -> tuple:
+    """(S, slots) for a launch of the d_query (name KERNEL_DQ) or d_context
+    (KERNEL_DC) kernel on CUDA tensors: slots = the card's SMs x the blocks
+    of this instantiation an SM holds (the launcher's occupancy query)."""
+    bc, ls, d = context.shape
+    bq, lq, _ = query.shape
+    key = (context.device.index, name, ls, lq, d, bool(mxu_bf16))
+    if key not in _SLOTS:
+        per_sm = int(_function(_BWD_SOURCE, "xattn_sim_bwd_blocks_per_sm")(
+            int(name == KERNEL_DC), ls, lq, d, int(mxu_bf16)))
+        if per_sm < 1:
+            # a negative count is -cudaError_t: cudaErrorInvalidValue (1) where
+            # the operands and the pair's vectors exceed shared memory
+            raise RuntimeError(f"{name}: no block fits an SM (Lq={lq}, Ls={ls}, D={d}): "
+                               f"cudaError_t {max(-per_sm, 0)} from the occupancy query")
+        sms = torch.cuda.get_device_properties(context.device).multi_processor_count
+        _SLOTS[key] = sms * per_sm
+    items, partners = (bq, bc) if name == KERNEL_DQ else (bc, bq)
+    slots = _SLOTS[key]
+    return backward_splits(items, partners, slots), slots
+
+
 def _launch_bwd(name: str, context, query, ctx_mask, g, lam: float, focal_equal: bool,
                 mxu_bf16: bool):
-    """d_query (name KERNEL_DQ) or d_context (KERNEL_DC) from the kernel."""
+    """d_query (name KERNEL_DQ) or d_context (KERNEL_DC) from the kernels:
+    the main kernel on (items, S) blocks, each over its share of the
+    partners, then the reduce kernel over the S partials."""
     _check(context, query, ctx_mask, g)
     bc, ls, d = context.shape
     bq, lq, _ = query.shape
@@ -286,24 +337,28 @@ def _launch_bwd(name: str, context, query, ctx_mask, g, lam: float, focal_equal:
     if bc == 0 or bq == 0:
         return out.zero_()
     fn = _function(_BWD_SOURCE, name)
+    splits, _ = backward_plan(name, context, query, mxu_bf16)
     cn, qn, q_norm = _scratch(context, query)
+    part = torch.empty((splits,) + tuple(out.shape), dtype=torch.float32, device=out.device)
+    part_dqn = torch.empty_like(part) if name == KERNEL_DQ else None  # d_query's dqn
     # where a pair's tiles do not fit one block's shared memory (f = 8), each
     # block keeps them in its own slice of this workspace (size from the
     # launcher's own sizing)
-    per_block = int(_function(_BWD_SOURCE, "xattn_sim_bwd_workspace")(ls, lq, d))
-    blocks = bq if name == KERNEL_DQ else bc
+    per_block = int(_function(_BWD_SOURCE, "xattn_sim_bwd_workspace")(ls, lq, d, int(mxu_bf16)))
+    blocks = (bq if name == KERNEL_DQ else bc) * splits
     ws = (torch.empty(blocks * per_block, dtype=torch.float32, device=context.device)
           if per_block else None)
     with torch.cuda.device(context.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(context.data_ptr(), query.data_ptr(), ctx_mask.data_ptr(), g.data_ptr(),
                  out.data_ptr(), cn.data_ptr(), qn.data_ptr(), q_norm.data_ptr(),
+                 part.data_ptr(), None if part_dqn is None else part_dqn.data_ptr(),
                  None if ws is None else ws.data_ptr(),
-                 bc, bq, ls, lq, d, float(lam), int(focal_equal), int(mxu_bf16), stream)
+                 bc, bq, ls, lq, d, float(lam), int(focal_equal), int(mxu_bf16), splits, stream)
     if err != 0:
-        # cudaErrorInvalidValue (1): the staging buffers and the pair's row
-        # and column vectors do not fit one block's shared memory
-        raise RuntimeError(f"{name} launch failed (Lq={lq}, Ls={ls}, D={d}): "
+        # cudaErrorInvalidValue (1): the operands and the pair's row and
+        # column vectors do not fit one block's shared memory
+        raise RuntimeError(f"{name} launch failed (Lq={lq}, Ls={ls}, D={d}, S={splits}): "
                            f"cudaError_t {err}")
     LAUNCHES[name] += 1
     return out

@@ -209,3 +209,50 @@ def test_bwd_launcher_rejects_vectors_too_large_for_a_block():
     with pytest.raises(RuntimeError, match="cudaError_t"):
         xk.direction_sim_bwd(ctx, qry, mask, g, 20.0, True, True)
     assert xk.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])
+@pytest.mark.parametrize("shape", [(40, 37, 13, 11, 36), (40, 37, 240, 99, 64),
+                                   (3, 37, 30, 11, 20), (9, 1, 11, 30, 20)],
+                         ids=["40x37", "40x37-workspace", "3x37", "9x1"])
+def test_bwd_kernels_ragged_splits(shape, focal, bf16):
+    """The partner loop split over S blocks an item (backward_splits): 40
+    contexts x 37 queries leaves d_context's 37 partners ragged over its S
+    blocks (and d_query's 40 over its own on most slot counts), in the
+    resident and the workspace layout (240 x 99 tiles); 3 x 37 and 9 x 1
+    give a block a partner. Tolerances of test_bwd_kernels_match_plain_on_card;
+    bit-identical reruns; one count a launcher call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    ctx, qry, mask, g = _train_like_inputs(*shape, seed=7, device=dev)
+    if bf16:
+        ctx, qry = xk.round_bf16(ctx), xk.round_bf16(qry)
+    bc, bq = shape[:2]
+    s_dc, _ = xk.backward_plan(xk.KERNEL_DC, ctx, qry, bf16)
+    s_dq, _ = xk.backward_plan(xk.KERNEL_DQ, ctx, qry, bf16)
+    if bc == 40:
+        assert s_dc > 1 and bq % s_dc != 0, s_dc
+    if bc == 3:
+        assert s_dc == bq
+    if bq == 1:
+        assert s_dq == bc
+    tol = 2e-3 if bf16 else 1e-4
+    before = dict(xk.LAUNCHES)
+    dc, dq = xk.direction_sim_bwd(ctx, qry, mask, g, 20.0, focal, bf16)
+    dc2, dq2 = xk.direction_sim_bwd(ctx, qry, mask, g, 20.0, focal, bf16)
+    pdc, pdq = xk.direction_sim_bwd_plain(ctx, qry, mask, g, 20.0, focal, bf16)
+    torch.cuda.synchronize()
+    assert xk.LAUNCHES[xk.KERNEL_DQ] == before[xk.KERNEL_DQ] + 2
+    assert xk.LAUNCHES[xk.KERNEL_DC] == before[xk.KERNEL_DC] + 2
+    assert torch.equal(dc, dc2) and torch.equal(dq, dq2)  # no atomics: bit-identical
+    for a, b in ((dc, pdc), (dq, pdq)):
+        assert torch.isfinite(a).all()
+        err = (a - b).abs()
+        assert float((err > tol).float().mean()) <= 0.01, float(err.max())
+        assert float(err.max()) < 50 * tol
+    assert float(dc[0].abs().max()) == 0.0  # item 0 is masked throughout

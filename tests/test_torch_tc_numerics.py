@@ -12,6 +12,16 @@ emulating them in torch.
   both directions and both focal types. A single TF32 pass must miss that
   gate by more than 1e-5 somewhere: the control that shows the gate tells
   the two apart.
+* The bf16-mode local-similarity backward (csrc/xattn_sim_bwd.cu) takes its
+  products on bf16 `mma.sync` tiles: bf16 operands, rounded where the plain
+  version rounds them, with f32 sums in the tiles' order. A product of two
+  bf16 values is exact, so against the plain version's f32 products the
+  only freedom is the order of the sums. Here every product of the plain
+  bf16-mode backward is taken again in float64 on its own (bf16-valued)
+  operands and must agree within 1e-6 of its largest entry; the whole
+  backward with float64 products (later operands then rounded from
+  slightly other values) is held to the card's bf16 tolerance (chip_smoke
+  TOL_TRAIN["bf16"], with its allowance for operands whose rounding flips).
 * The bf16 grouped attention on `mma` tiles (csrc/grouped_attention.cu,
   grouped_attention_mma_kernel) keeps the JAX op's rounding sites with two
   passes over key chunks of 16 (padded keys out of the max and the sum):
@@ -214,3 +224,71 @@ def test_two_pass_softmax_matches_jax_xla(shape):
     want = grouped_attention_xla(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
                                    for t in (q, k, v)), jnp.asarray(bias.numpy()))
     _assert_bf16_close(got, torch.from_numpy(np.array(want.astype(jnp.float32))))
+
+
+BWD_PRODUCT_GATE = 1e-6  # f32 sums against float64, relative to the largest entry
+BWD_BF16_TOL, BWD_FLIP_TOL, BWD_FLIP_SHARE = 2e-3, 2e-2, 1e-2  # chip_smoke TOL_TRAIN bf16
+
+
+def _bwd_inputs(ls, lq, seed):
+    """bf16-valued contexts and queries (chip_smoke's training inputs: ~30%
+    of positions masked, item 1 masked throughout) and a cotangent."""
+    ctx, cmask = _items(3, ls, 256, seed)
+    qry, _ = _items(4, lq, 256, seed + 50)
+    g = torch.from_numpy(np.random.RandomState(seed + 9).randn(3, 4).astype(np.float32))
+    return xk.round_bf16(ctx), xk.round_bf16(qry), cmask, g
+
+
+# (Ls, Lq): pre-training at f = 1 and the fine-tune lengths at f = 8, both directions
+_BWD_SHAPES = [(30, 99), (99, 30), (240, 99), (99, 240)]
+_BWD_IDS = ["i2t-f1", "t2i-f1", "i2t-f8", "t2i-f8"]
+
+
+@pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])
+@pytest.mark.parametrize("ls,lq", _BWD_SHAPES, ids=_BWD_IDS)
+def test_bf16_backward_products_differ_from_float64_only_in_order(ls, lq, focal, monkeypatch):
+    """Each product of the bf16-mode backward (the recomputed forward's two,
+    dph, dqn, dcn's two) on bf16-valued operands; its f32 sums within 1e-6
+    of the float64 sums of the same operands."""
+    ctx, qry, cmask, g = _bwd_inputs(ls, lq, 0)
+    calls = []
+
+    def recording(eq, a, b):
+        out = _EINSUM(eq, a, b)
+        calls.append((eq, a, b, out))
+        return out
+
+    monkeypatch.setattr(torch, "einsum", recording)
+    xk.direction_sim_bwd_plain(ctx, qry, cmask, g, 20.0, focal, True)
+    monkeypatch.undo()
+    assert len(calls) == 6
+    for eq, a, b, out in calls:
+        for t in (a, b):
+            assert torch.equal(xk.round_bf16(t), t), eq  # bf16 values
+        exact = _EINSUM(eq, a.double(), b.double())
+        err = float((out.double() - exact).abs().max()) / float(exact.abs().max())
+        assert err <= BWD_PRODUCT_GATE, (eq, err)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])
+@pytest.mark.parametrize("ls,lq", _BWD_SHAPES, ids=_BWD_IDS)
+def test_bf16_backward_with_float64_products_within_card_tolerance(ls, lq, focal, seed,
+                                                                   monkeypatch):
+    """The whole bf16-mode backward with float64 products against the plain
+    version's f32 products: within 2e-3 of the largest entry, or within 2e-2
+    with at most 1% of the entries beyond 2e-3 (a later operand's bf16
+    rounding can flip by one ulp when its f32 value moves in the last digit)."""
+    ctx, qry, cmask, g = _bwd_inputs(ls, lq, seed)
+    want = xk.direction_sim_bwd_plain(ctx, qry, cmask, g, 20.0, focal, True)
+    monkeypatch.setattr(torch, "einsum", lambda eq, a, b: _EINSUM(eq, a.double(), b.double()).float())
+    got = xk.direction_sim_bwd_plain(ctx, qry, cmask, g, 20.0, focal, True)
+    monkeypatch.undo()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        err = (a - b).abs()
+        rel = float(err.max()) / scale
+        share = float((err > BWD_BF16_TOL * scale).float().mean())
+        assert rel <= BWD_BF16_TOL or (rel <= BWD_FLIP_TOL and share <= BWD_FLIP_SHARE), (rel, share)
+    assert float(got[0][1].abs().max()) == 0.0  # a fully masked context item

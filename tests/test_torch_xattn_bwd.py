@@ -168,3 +168,80 @@ def test_bwd_launch_checks_arguments(change, err):
     with pytest.raises(err):
         xk._launch_bwd(xk.KERNEL_DQ, *change(c, q, m, g), 20.0, True, False)
     assert xk.LAUNCHES == before
+
+
+# ---- the backward kernels' split of the partner loop over S blocks an item
+# (ops/xattn_kernel.py::backward_splits; the reduce kernels' semantics)
+
+
+def _pair_steps(items, partners, slots, s):
+    return -(-items * s // slots) * -(-partners // s)
+
+
+@pytest.mark.parametrize("items,partners,slots,want", [
+    (32, 32, 132, 4),  # f = 8 fine-tune: 128 blocks of 8 partners
+    (128, 128, 132, 1),  # f = 1 pre-training, one block an SM
+    (128, 128, 264, 2),  # f = 1 where two blocks fit an SM
+    (40, 1, 132, 1),  # one partner
+    (1, 9, 132, 9),  # one item: a block a partner
+    (200, 50, 132, 1),  # the items alone fill the slots
+], ids=["f8", "f1", "f1-two-a-sm", "one-partner", "one-item", "items-past-slots"])
+def test_backward_splits_at_known_shapes(items, partners, slots, want):
+    assert xk.backward_splits(items, partners, slots) == want
+
+
+def test_backward_splits_is_the_smallest_minimum_within_one_wave():
+    """Brute force over S <= partners on a grid of small cases: S minimises
+    the pair-steps on the busiest slot among the splits that keep the grid
+    within one wave of the slots (or S = 1), and no smaller S does as well."""
+    for items in range(1, 13):
+        for partners in range(1, 15):
+            for slots in (1, 2, 3, 5, 8, 13, 24):
+                s = xk.backward_splits(items, partners, slots)
+                assert 1 <= s <= partners
+                allowed = [t for t in range(1, partners + 1) if t == 1 or items * t <= slots]
+                best = min(_pair_steps(items, partners, slots, t) for t in allowed)
+                assert s in allowed
+                assert _pair_steps(items, partners, slots, s) == best
+                assert all(_pair_steps(items, partners, slots, t) > best
+                           for t in allowed if t < s)
+
+
+def _ranges(partners, splits):
+    """The partner ranges of the kernels' blocks s = 0 .. S - 1."""
+    return [slice(s * partners // splits, (s + 1) * partners // splits) for s in range(splits)]
+
+
+@pytest.mark.parametrize("splits", [1, 3], ids=["S1", "S3-ragged"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_split_partials_reduce_to_the_plain_backward(splits, bf16):
+    """What the main and reduce kernels compute, written with the plain
+    pieces: each block (item, s) sums `_backward_block` over its partner
+    range; d_query's two partials hold dq_direct and dqn, d_context's dcn;
+    the reduce sums the S partials in order and applies the qn / cn
+    backward to the totals. That must match `direction_sim_bwd_plain`
+    within 1e-5 of its largest entry. The partner count (7 contexts, 8
+    queries) is not a multiple of S = 3."""
+    rng = np.random.RandomState(11)
+    ctx = torch.from_numpy(rng.randn(7, 6, 12).astype(np.float32))
+    qry = torch.from_numpy(rng.randn(8, 5, 12).astype(np.float32))
+    if bf16:
+        ctx, qry = xk.round_bf16(ctx), xk.round_bf16(qry)
+    mask = torch.from_numpy(((rng.rand(7, 6) > 0.3).astype(np.float32) - 1) * 100)
+    mask[2] = -100.0  # a fully masked context item
+    g = torch.from_numpy(rng.randn(7, 8).astype(np.float32))
+    args = (20.0, True, bf16)
+    part_direct, part_dqn, part_dcn = [], [], []
+    for cs in _ranges(7, splits):  # d_query: partners are the contexts
+        dq_direct, dqn, _ = xk._backward_block(ctx[cs], qry, mask[cs], g[cs], *args)
+        part_direct.append(dq_direct)
+        part_dqn.append(dqn)
+    for qs in _ranges(8, splits):  # d_context: partners are the queries
+        part_dcn.append(xk._backward_block(ctx, qry[qs], mask, g[:, qs], *args)[2])
+    dq = sum(part_direct) + xk._unit_backward(sum(part_dqn), qry)
+    dc = xk._unit_backward(sum(part_dcn), ctx)
+    want_dc, want_dq = xk.direction_sim_bwd_plain(ctx, qry, mask, g, *args)
+    for got, want in ((dc, want_dc), (dq, want_dq)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert float(dc[2].abs().max()) == 0.0
