@@ -1,14 +1,11 @@
 // Pieces shared by the local-similarity kernels (xattn_sim_fwd.cu and
-// xattn_sim_bwd.cu): the row normalisation, warp reductions, the bf16
-// operand rounding and the register-tiled 64 x 128 product.
+// xattn_sim_bwd.cu): the row normalisation, warp reductions and the
+// register-tiled 64 x 128 product of the backward's f32 mode.
 //
 // Products: 256 threads own a 64 x 128 output tile, 4 x 8 outputs a thread,
 // fed by 16-deep operand chunks staged in shared memory and read back as
 // float4 (3 vector shared loads per 32 FMAs). All arithmetic is IEEE f32
-// FFMA: no TF32, no fast-math. In bf16 mode every product operand is
-// rounded to bf16 (round to nearest even) while it is staged; a product of
-// two bf16 values is exact in f32, so this is a bf16-operand,
-// f32-accumulate product up to summation order.
+// FFMA: no TF32, no fast-math.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,16 +22,6 @@ constexpr int kStrideA = kTileM + 4;  // padded, 16-byte aligned rows
 constexpr int kStrideB = kTileN + 4;
 constexpr int kStageFloats = kDepth * (kStrideA + kStrideB);
 constexpr float kEps = 1e-8f;
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// A product operand: rounded to bf16 in bf16 mode, as it is in f32 mode.
-template <bool kBf16>
-__device__ __forceinline__ float operand(float x) {
-  return kBf16 ? bf16_round(x) : x;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -106,7 +93,7 @@ __device__ __forceinline__ int tile_col(int tx, int j) {
 // threads read neighbouring addresses. Thread (tx, ty) owns rows
 // m0 + ty*4 + i and columns n0 + tile_col(tx, j). Ends with a barrier, so
 // the staging buffers are free again on return.
-template <bool kBf16, bool kAK, bool kBK, class FA, class FB>
+template <bool kAK, bool kBK, class FA, class FB>
 __device__ __forceinline__ void tile_product(int m0, int n0, int M, int N, int K, FA fa,
                                              FB fb, float* As, float* Bs, float acc[4][8]) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -120,14 +107,14 @@ __device__ __forceinline__ void tile_product(int m0, int n0, int M, int N, int K
       const int m = kAK ? (tid >> 4) + 16 * r : (tid & 63);
       const int k = kAK ? (tid & 15) : (tid >> 6) + 4 * r;
       const int gm = m0 + m, gk = k0 + k;
-      As[k * kStrideA + m] = (gm < M && gk < K) ? operand<kBf16>(fa(gm, gk)) : 0.f;
+      As[k * kStrideA + m] = (gm < M && gk < K) ? fa(gm, gk) : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < 8; ++r) {  // B chunk: 16 x 128, 8 values a thread
       const int n = kBK ? (tid >> 4) + 16 * r : (tid & 127);
       const int k = kBK ? (tid & 15) : (tid >> 7) + 2 * r;
       const int gn = n0 + n, gk = k0 + k;
-      Bs[k * kStrideB + n] = (gn < N && gk < K) ? operand<kBf16>(fb(gk, gn)) : 0.f;
+      Bs[k * kStrideB + n] = (gn < N && gk < K) ? fb(gk, gn) : 0.f;
     }
     __syncthreads();
     mma_chunk(As, Bs, tx, ty, acc);

@@ -264,7 +264,7 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two f32 values rounded to bf16 (nearest even, as bf16_round) and packed,
+// Two f32 values rounded to bf16 (nearest even) and packed,
 // `lo` in the low half: the operand pair of one fragment register.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -404,10 +404,10 @@ __device__ void product_nt(FX fx, FY fy, int Lq, int Ls, int D, float* out, cons
     for (int n0 = 0; n0 < N; n0 += kTileN) {
       float acc[4][8];
       if (trans)
-        tile_product<false, true, true>(m0, n0, M, N, D, fy, [&](int k, int n) { return fx(n, k); },
+        tile_product<true, true>(m0, n0, M, N, D, fy, [&](int k, int n) { return fx(n, k); },
                                         sh.As, sh.Bs, acc);
       else
-        tile_product<false, true, true>(m0, n0, M, N, D, fx, [&](int k, int n) { return fy(n, k); },
+        tile_product<true, true>(m0, n0, M, N, D, fx, [&](int k, int n) { return fy(n, k); },
                                         sh.As, sh.Bs, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -499,7 +499,7 @@ __device__ void forward_recompute(const Pair& pr, const Shm& sh, int Ls, int Lq,
     for (int l0 = 0; l0 < Lq; l0 += kTileM) {
       for (int d0 = 0; d0 < D; d0 += kTileN) {
         float acc[4][8];
-        tile_product<false, true, false>(
+        tile_product<true, false>(
             l0, d0, Lq, D, Ls, [&](int l, int s) { return PH[l * Ls + s]; },
             [&](int s, int d) { return pr.CN[s * D + d]; }, sh.As, sh.Bs, acc);
 #pragma unroll
@@ -654,7 +654,7 @@ xattn_sim_bwd_dq_kernel(const float* __restrict__ cn,     // (Bc, Ls, D) normali
       for (int l0 = 0; l0 < Lq; l0 += kTileM) {
         for (int d0 = 0; d0 < D; d0 += kTileN) {
           float acc[4][8];
-          tile_product<false, true, false>(
+          tile_product<true, false>(
               l0, d0, Lq, D, Ls, [&](int l, int s) { return sh.DA[l * Ls + s]; },
               [&](int s, int d) { return pr.CN[s * D + d]; }, sh.As, sh.Bs, acc);
           tile_accumulate(acc, DQN, l0, d0, Lq, D, D);
@@ -727,7 +727,7 @@ xattn_sim_bwd_dc_kernel(const float* __restrict__ cn,     // (Bc, Ls, D) normali
       for (int s0 = 0; s0 < Ls; s0 += kTileM) {
         for (int d0 = 0; d0 < D; d0 += kTileN) {
           float acc[4][8];
-          tile_product<false, false, false>(
+          tile_product<false, false>(
               s0, d0, Ls, D, 2 * Lq,
               [&](int s, int k) { return k < Lq ? PH[k * Ls + s] : sh.DA[(k - Lq) * Ls + s]; },
               [&](int k, int d) { return k < Lq ? sh.W[k * D + d] : pr.QN[(k - Lq) * D + d]; },

@@ -48,8 +48,9 @@ _BLOCK = 64  # items a side in one block pair of the plain versions
 #: launcher calls since the last reset (compare launches are counted too;
 #: callers reset it around the run they want to read). A forward count is
 #: one direction: l2norm_rows_kernel over the context rows and over the
-#: query rows, then xattn_sim_fwd_tf32_kernel (f32 mode) or
-#: xattn_sim_fwd_kernel (bf16 mode). A backward count is the same two
+#: query rows, then xattn_sim_fwd_tf32_kernel (f32 mode); or in bf16 mode
+#: l2norm_rows_bf16_kernel twice, then xattn_sim_fwd_bf16_kernel on an
+#: (items, S) grid (S from the launcher). A backward count is the same two
 #: row-norm launches, then xattn_sim_bwd_dq_kernel and
 #: xattn_sim_bwd_dq_reduce_kernel, or xattn_sim_bwd_dc_kernel and
 #: xattn_sim_bwd_dc_reduce_kernel.
@@ -236,6 +237,9 @@ _ARGTYPES = {
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "xattn_sim_bwd_workspace": [ctypes.c_int] * 4,
     "xattn_sim_bwd_blocks_per_sm": [ctypes.c_int] * 5,
+    "xattn_sim_fwd_bf16_splits": [ctypes.c_int] * 5,
+    "xattn_l2norm_rows_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                                       ctypes.c_void_p],
 }
 _ARGTYPES["xattn_sim_bwd_dc"] = _ARGTYPES["xattn_sim_bwd_dq"]
 _RESTYPES = {"xattn_sim_bwd_workspace": ctypes.c_longlong}
@@ -278,6 +282,14 @@ def _launch(context, query, ctx_mask, lam: float, focal_equal: bool, mxu_bf16: b
                            f"cudaError_t {err}")
     LAUNCHES[KERNEL_BF16 if mxu_bf16 else KERNEL] += 1
     return out
+
+
+def bf16_forward_splits(bc: int, bq: int, ls: int, lq: int, d: int) -> int:
+    """S, the blocks that share one held item's partners in the bf16
+    forward, as its launcher picks it on the current card for this shape
+    (backward_splits' rule over the launcher's occupancy query), or
+    -cudaError_t where the shape is refused."""
+    return int(_function(KERNEL, "xattn_sim_fwd_bf16_splits")(bc, bq, ls, lq, d))
 
 
 _MAX_SPLITS = 65535  # the grid's y extent

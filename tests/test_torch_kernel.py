@@ -122,6 +122,182 @@ def _train_like_inputs(bc, bq, ls, lq, d, seed, device):
     return ctx.to(device), qry.to(device), mask.to(device), g.to(device)
 
 
+BF16_TOL, BF16_FLIP_TOL, BF16_FLIP_SHARE = 2e-3, 2e-2, 1e-2  # chip_smoke TOL_TRAIN["bf16"]
+
+
+def _assert_bf16_forward_close(got, want):
+    """chip_smoke's bf16 training tolerance: max |err| within 2e-3 of the
+    largest plain sim, or within 2e-2 with at most 1% of the entries beyond
+    2e-3 (an operand whose last f32 digit differs can round to the next
+    bf16 value, and a focal near-tie can flip)."""
+    assert torch.isfinite(got).all()
+    scale = float(want.abs().max()) or 1.0
+    err = (got - want).abs()
+    rel = float(err.max()) / scale
+    share = float((err > BF16_TOL * scale).float().mean())
+    assert rel <= BF16_TOL or (rel <= BF16_FLIP_TOL and share <= BF16_FLIP_SHARE), (rel, share)
+
+
+def _bf16_forward_case(bc, bq, ls, lq, d, focal, seed):
+    """The bf16 forward (xattn_sim_fwd_bf16_kernel) against the plain bf16
+    version: one count a call, bit-identical reruns, zero for the fully
+    masked context item 0 (with one context item, nothing is masked there);
+    returns the launcher's split S."""
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    ctx, qry, mask = _inputs(bc, bq, ls, lq, d, seed=seed)
+    if bc > 1:  # item 1: ragged -100 positions holding zero vectors (inert padding)
+        ctx[1, ls // 2:] = 0.0
+        mask[1, ls // 2:] = -100.0
+    else:
+        mask[0] = 0.0
+    ctx, qry, mask = xk.round_bf16(ctx).to(dev), xk.round_bf16(qry).to(dev), mask.to(dev)
+    before = xk.LAUNCHES[xk.KERNEL_BF16]
+    got = xk.direction_sim(ctx, qry, mask, 20.0, focal, True)
+    again = xk.direction_sim(ctx, qry, mask, 20.0, focal, True)
+    want = xk.direction_sim_plain(ctx, qry, mask, 20.0, focal, True)
+    torch.cuda.synchronize()
+    assert xk.LAUNCHES[xk.KERNEL_BF16] == before + 2
+    assert torch.equal(got, again)  # one writer an output, fixed order: bit-identical
+    _assert_bf16_forward_close(got, want)
+    if bc > 1:
+        assert float(got[0].abs().max()) == 0.0  # fully masked context: p = 0
+    return xk.bf16_forward_splits(bc, bq, ls, lq, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])
+@pytest.mark.parametrize("ls,lq,d", [(30, 99, 256), (99, 30, 256), (240, 99, 256),
+                                     (99, 240, 256), (13, 40, 20), (13, 40, 36),
+                                     (13, 40, 256), (300, 40, 20), (300, 40, 36),
+                                     (300, 40, 256)],
+                         ids=["i2t-f1", "t2i-f1", "i2t-f8", "t2i-f8", "ragged-d20",
+                              "ragged-d36", "ragged-d256", "wide-d20", "wide-d36",
+                              "wide-d256"])
+def test_bf16_forward_matches_plain_on_card(ls, lq, d, focal):
+    """The bf16 tensor-core forward at the pre-training shapes (f = 1), the
+    f = 8 shapes (the operands then read from device memory: the streamed
+    instantiation), and ragged ones: Lq past a 16-row tile, Ls past 8, 16
+    and 32 columns and (300) past the 256 softmax columns a warp keeps in
+    registers, D (20, 36) not a multiple of 16 or of 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _bf16_forward_case(7, 5, ls, lq, d, focal, seed=11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])
+@pytest.mark.parametrize("shape,split", [((40, 37, 30, 99, 64), "ragged"),
+                                         ((37, 40, 99, 30, 64), "ragged"),
+                                         ((1, 9, 30, 99, 36), "one"),
+                                         ((9, 1, 30, 99, 36), "each")],
+                         ids=["40x37-i2t", "37x40-t2i", "bc1", "bq1"])
+def test_bf16_forward_partner_splits(shape, split, focal):
+    """The partner walk split over S blocks a held item: 40 partners over
+    S blocks with 40 % S != 0 (the query held at i2t, the context at t2i);
+    Bc = 1 (one partner, S = 1) and Bq = 1 (one held query, a block each of
+    the 9 partners)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    s = _bf16_forward_case(*shape, focal, seed=12)
+    partners = 40 if split == "ragged" else shape[0]
+    if split == "ragged":
+        assert s > 1 and partners % s != 0, s
+    elif split == "one":
+        assert s == 1, s
+    else:
+        assert s == partners, s
+
+
+@pytest.mark.gpu
+def test_bf16_forward_refuses_tiles_too_large_for_a_block():
+    """Lq = 200 rows of Ls = 400 scores: the f32 score tile and the bf16 P
+    tile (about 500 KB) exceed one block's shared memory even with the
+    operands left in device memory: the launcher refuses before any launch,
+    the wrapper raises and counts nothing, and there is no fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    ctx, qry, mask = _inputs(2, 3, 400, 200, 8, device=dev)
+    before = dict(xk.LAUNCHES)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        xk.direction_sim(xk.round_bf16(ctx), xk.round_bf16(qry), mask, 20.0, True, True)
+    assert xk.LAUNCHES == before
+    assert xk.bf16_forward_splits(2, 3, 400, 200, 8) < 0
+
+
+def rne_bf16_bits(x: np.ndarray) -> np.ndarray:
+    """The bf16 bit patterns of f32 values rounded to nearest, ties to even
+    (what __float2bfloat16_rn does), by integer arithmetic."""
+    bits = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def adversarial_norm_rows() -> np.ndarray:
+    """(rows, 16) f32 rows whose sums of squares are exact in any order and
+    whose norm is exactly 1 (so |x| + 1e-8 is 1.0 in f32 and x / (|x| + eps)
+    is x): bf16 ties of both parities at four scales (n * 2^-12 with n
+    halfway between two bf16 values), completed to norm 1 by four squares;
+    f32 subnormals with a tie in their low 16 bits beside a 1; a zero row."""
+    ties = [[257, -259, 514, 1028, 2056], [-263, 518, -1036, 2072, 261], [265, 522, 1044]]
+    rows = []
+    for t in ties:
+        rest = 2 ** 24 - sum(v * v for v in t)
+        rows.append(np.array(t + _four_squares(rest) + [0] * (12 - len(t)), np.float64)
+                    * 2.0 ** -12)
+    sub = np.array([0x00018000, 0x00028000, 0x80038000, 0x00008000, 0x00010000, 0x007F8000],
+                   np.uint32).view(np.float32)
+    rows.append(np.concatenate([[1.0], sub, np.zeros(16 - 1 - len(sub))]))
+    rows.append(np.zeros(16))
+    return np.stack(rows).astype(np.float32)
+
+
+def _four_squares(n: int) -> list:
+    """Four non-negative integers whose squares sum to n (greedy search)."""
+    import math
+
+    for a in range(math.isqrt(n), -1, -1):
+        for b in range(math.isqrt(n - a * a), -1, -1):
+            r = n - a * a - b * b
+            for c in range(math.isqrt(r), -1, -1):
+                d = math.isqrt(r - c * c)
+                if d * d == r - c * c:
+                    return [a, b, c, d]
+    raise ValueError(n)
+
+
+@pytest.mark.gpu
+def test_bf16_row_norm_rounds_to_nearest_even_on_card():
+    """The bf16 mode's row-norm pass (l2norm_rows_bf16_kernel) writes
+    bf16(x / (|x| + eps)) and bf16(x) bit for bit as round_bf16 rounds the
+    f32 values, on rows whose norm is exact: ties of both parities,
+    subnormals, a zero row (0 and a zero norm)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    x = torch.from_numpy(adversarial_norm_rows()).to(dev)
+    rows, d = x.shape
+    xn = torch.empty((rows, d), dtype=torch.bfloat16, device=dev)
+    raw = torch.empty_like(xn)
+    norm = torch.empty(rows, dtype=torch.float32, device=dev)
+    fn = xk._function(xk.KERNEL, "xattn_l2norm_rows_bf16")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), xn.data_ptr(), raw.data_ptr(), norm.data_ptr(), rows, d,
+                 torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want_norm = torch.sqrt(torch.sum(x.double() ** 2, -1)).float()
+    assert torch.equal(norm, want_norm)
+    want = (x / (want_norm[:, None] + 1e-8)).to(torch.bfloat16)
+    assert torch.equal(xn.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(raw.view(torch.int16), x.to(torch.bfloat16).view(torch.int16))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])

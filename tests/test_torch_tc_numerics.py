@@ -22,6 +22,14 @@ emulating them in torch.
   backward with float64 products (later operands then rounded from
   slightly other values) is held to the card's bf16 tolerance (chip_smoke
   TOL_TRAIN["bf16"], with its allowance for operands whose rounding flips).
+* The bf16-mode local-similarity forward (csrc/xattn_sim_fwd.cu,
+  xattn_sim_fwd_bf16_kernel) takes qn and cn as bf16 rows rounded to
+  nearest even from the f32 normalised rows, both products on bf16 `mma`
+  tiles (exact bf16 products, each 16-deep k step added to the f32
+  accumulator), P rounded to bf16, and num and |w|^2 summed per 32-column
+  chunk, the chunks in order. Emulated here and held within the card's bf16
+  tolerance (chip_smoke TOL_TRAIN["bf16"] with its flip allowance) of the
+  plain bf16 version and of JAX's interpret-mode Pallas kernel in bf16.
 * The bf16 grouped attention on `mma` tiles (csrc/grouped_attention.cu,
   grouped_attention_mma_kernel) keeps the JAX op's rounding sites with two
   passes over key chunks of 16 (padded keys out of the max and the sum):
@@ -292,3 +300,133 @@ def test_bf16_backward_with_float64_products_within_card_tolerance(ls, lq, focal
         share = float((err > BWD_BF16_TOL * scale).float().mean())
         assert rel <= BWD_BF16_TOL or (rel <= BWD_FLIP_TOL and share <= BWD_FLIP_SHARE), (rel, share)
     assert float(got[0][1].abs().max()) == 0.0  # a fully masked context item
+
+
+def _mma_product(eq, a, b, k_axis_a, k_axis_b):
+    """einsum(eq, a, b) as the bf16 mma tiles take it: exact products, each
+    16-deep step of the contraction added to the f32 accumulator in k order
+    (zero padding to a multiple of 16 adds nothing)."""
+    k = a.shape[k_axis_a]
+    acc = None
+    for k0 in range(0, k, 16):
+        step = _EINSUM(eq, a.narrow(k_axis_a, k0, min(16, k - k0)).double(),
+                       b.narrow(k_axis_b, k0, min(16, k - k0)).double())
+        acc = step.float() if acc is None else (acc.double() + step).float()
+    return acc
+
+
+def bf16_forward_emulated(ctx, qry, cmask, lam=20.0, focal=False):
+    """sim (Bc, Bq) with the bf16 kernel's arithmetic, on inputs that hold
+    bf16 values: the row norms in f32, qn and cn rounded to bf16; a0 = qn cn^T
+    on mma steps; the score phases in f32 (zero-numerator divisions give 0);
+    P rounded to bf16; w = P cn on mma steps; num and |w|^2 per 32-column
+    chunk of D, the chunks added in order; the cosine against the raw query."""
+    ls, lq, d = ctx.shape[1], qry.shape[1], ctx.shape[2]
+    qn, q_norm = xk._normalise(qry)
+    cn, _ = xk._normalise(ctx)
+    qn, cn = xk.round_bf16(qn), xk.round_bf16(cn)
+    a0 = _mma_product("qld,csd->cqls", qn, cn, 2, 2)
+    a1 = torch.where(a0 >= 0, a0, 0.1 * a0)
+    r = torch.sqrt(torch.sum(a1 * a1, dim=2, keepdim=True)) + xk._EPS
+    a2 = torch.where(a1 != 0, a1 / r, 0.0)
+    e = torch.exp((a2 + cmask[:, None, None, :]) * lam)
+
+    def renorm(x):
+        s = torch.sum(x, -1, keepdim=True)
+        return torch.where((s > 0) & (x != 0), x / torch.where(s > 0, s, 1.0), 0.0)
+
+    p = renorm(e)
+    if focal:
+        p = renorm(torch.where(p * ls - torch.sum(p, -1, keepdim=True) > 0, p, 0.0))
+    w = _mma_product("cqls,csd->cqld", xk.round_bf16(p), cn, 3, 1)
+    pad = -d % 32
+    chunks = lambda t: torch.nn.functional.pad(t, (0, pad)).unflatten(-1, (-1, 32)).sum(-1)
+    num_c, wsq_c = chunks(w * qry[None]), chunks(w * w)
+    num, wsq = num_c[..., 0], wsq_c[..., 0]
+    for ch in range(1, num_c.shape[-1]):
+        num, wsq = num + num_c[..., ch], wsq + wsq_c[..., ch]
+    cos = num / torch.clamp(torch.sqrt(wsq) * q_norm[None], min=xk._EPS)
+    return torch.sum(cos, -1) / lq
+
+
+def _assert_bf16_sims_close(got, want):
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    rel = float(err.max()) / scale
+    share = float((err > BWD_BF16_TOL * scale).float().mean())
+    assert rel <= BWD_BF16_TOL or (rel <= BWD_FLIP_TOL and share <= BWD_FLIP_SHARE), (rel, share)
+
+
+def _fwd_inputs(ls, lq, seed, d=256):
+    """bf16-valued contexts and queries as chip_smoke's training inputs
+    (~30% of positions masked, item 1 masked throughout)."""
+    ctx, cmask = _items(3, ls, d, seed)
+    qry, _ = _items(4, lq, d, seed + 50)
+    return xk.round_bf16(ctx), xk.round_bf16(qry), cmask
+
+
+@pytest.mark.parametrize("ls,lq", _BWD_SHAPES, ids=_BWD_IDS)
+def test_bf16_forward_mma_products_within_f32_of_float64(ls, lq):
+    """The emulated mma products (exact bf16 products, a 16-deep step at a
+    time into f32) on the forward's own operands: within 1e-6 of float64
+    sums of the same operands, so the kernel's order is no source of error
+    beside the roundings it shares with the plain version."""
+    ctx, qry, _ = _fwd_inputs(ls, lq, 3)
+    qn = xk.round_bf16(xk._normalise(qry)[0])
+    cn = xk.round_bf16(xk._normalise(ctx)[0])
+    got = _mma_product("qld,csd->cqls", qn, cn, 2, 2)
+    exact = _EINSUM("qld,csd->cqls", qn.double(), cn.double())
+    err = float((got.double() - exact).abs().max()) / float(exact.abs().max())
+    assert err <= BWD_PRODUCT_GATE, err
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])
+@pytest.mark.parametrize("ls,lq", _BWD_SHAPES, ids=_BWD_IDS)
+def test_bf16_forward_emulation_matches_plain(ls, lq, focal, seed):
+    ctx, qry, cmask = _fwd_inputs(ls, lq, seed)
+    got = bf16_forward_emulated(ctx, qry, cmask, 20.0, focal)
+    want = xk.direction_sim_plain(ctx, qry, cmask, 20.0, focal, True)
+    assert torch.isfinite(got).all()
+    assert float(got[1].abs().max()) == 0.0  # a fully masked context item
+    _assert_bf16_sims_close(got, want)
+
+
+@pytest.mark.parametrize("focal", ["prob", "equal"])
+@pytest.mark.parametrize("regions", [30, 240], ids=["f1", "f8"])
+def test_bf16_forward_emulation_matches_jax_interpret(regions, focal):
+    """Both directions (t2i.T + i2t) emulated against JAX's
+    xattn_score_pallas_interpret(..., compute_dtype=bfloat16) on the same
+    bf16-valued inputs, at the f = 1 and f = 8 lengths (99 words)."""
+    import jax.numpy as jnp
+
+    from demovlp_tpu.ops.pallas_xattn import xattn_score_pallas_interpret
+
+    img, imask = _items(3, regions, 256, 7)
+    txt, tmask = _items(4, 99, 256, 8)
+    img, txt = xk.round_bf16(img), xk.round_bf16(txt)
+    eq = focal == "equal"
+    got = (bf16_forward_emulated(txt, img, tmask, 20.0, eq).T
+           + bf16_forward_emulated(img, txt, imask, 20.0, eq))
+    want = xattn_score_pallas_interpret(*(jnp.asarray(t.numpy()) for t in (img, txt, imask, tmask)),
+                                        20.0, focal, compute_dtype=jnp.bfloat16)
+    _assert_bf16_sims_close(got, torch.from_numpy(np.array(want, dtype=np.float32)))
+
+
+def test_bf16_row_norm_rounding_is_round_bf16():
+    """The row-norm pass's bf16 rounding (nearest even, as
+    __float2bfloat16_rn) emulated by integer arithmetic equals round_bf16 bit
+    for bit on the normalised rows and the raw rows of adversarial inputs:
+    ties of both parities, subnormals, a zero row (norm exact, so
+    x / (|x| + eps) is the value the card divides to)."""
+    from tests.test_torch_kernel import adversarial_norm_rows, rne_bf16_bits
+
+    x = torch.from_numpy(adversarial_norm_rows())
+    xn, norm = xk._normalise(x)
+    assert torch.equal(norm, torch.sqrt(torch.sum(x.double() ** 2, -1)).float())
+    assert torch.equal(xn[:-1], x[:-1]) and float(xn[-1].abs().max()) == 0.0  # norms 1 and 0
+    for t in (xn, x):
+        want = xk.round_bf16(t).numpy().view(np.uint32) >> 16
+        assert np.array_equal(rne_bf16_bits(t.numpy()).astype(np.uint32), want)
+    ties = x.numpy().view(np.uint32) & 0xFFFF == 0x8000
+    assert ties.sum() >= 16  # the rows do hold exact ties
