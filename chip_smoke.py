@@ -44,6 +44,21 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 bf16 towers, f32 local loss, 16 steps, validation) starting
                 from the train phase's f = 1 checkpoint (temporal embed
                 inflated), launch counts reset just before and read just after;
+ 11b. realdata — the train CLI on configs/ft/msvd_o2t-select.json (text tower
+                random-init at full width, from the train phase's f = 1
+                checkpoint, 16 steps of 32 at f = 8, validation before and after)
+                over real MSVD ids and captions (the first 512 rows of
+                meta_data/MSVD_train.tsv, 256 of MSVD_test.tsv) and a region
+                tree written from a seed under build/ (8-12 frames a video,
+                10-36 regions a frame, one file in eight compressed; about
+                1.5 GB, removed after the phase), through MSVDObjectSelect and
+                the native reader (demovlp_tpu_torch/native, built by g++ into
+                build/native/) decoding whole batches; launch counts and the
+                reader's frame counts reset just before and read just after;
+                fails unless every train and validation frame was decoded
+                natively. Then a step with its data (real vs synthetic), and
+                the loader alone through the native and the numpy per-sample
+                paths, whose batches must be identical;
  12. qa       — train_qa at full width on configs/bench/qa_synthetic_f8.json
                 (batch 64, 1500 answers, 16 steps, a val pass); card vs CPU
                 on the f32 smoke config: losses and logits of two steps;
@@ -81,10 +96,12 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -198,6 +215,17 @@ TOL_ATTN = {"f32": 1e-5, "bf16": 2.0 ** -7}
 # scores as the smoke serve's sims are held (check_close 'equal', with room
 # for a flipped entry)
 QA_LOGITS_TOL = dict(rtol=1e-4, atol=1e-5)
+# the real-data phase: configs/ft/msvd_o2t-select.json over the first rows
+# of the committed MSVD split files (real ids and captions) and a region
+# tree written from a seed in the bottom-up-attention layout: 8-12 frames a
+# video (f = 8 sampling finds distinct frames), 10-36 regions a frame (top-30
+# selection pads some), one file in eight np.savez_compressed
+MSVD_CFG = ROOT / "configs" / "ft" / "msvd_o2t-select.json"
+RD_ROWS = {"MSVD_train.tsv": 512, "MSVD_test.tsv": 256}
+RD_FRAMES = (8, 12)
+RD_REGIONS = (10, 36)
+RD_SEED = 8
+RD_LOADER_BATCHES = 16
 
 
 def log(msg: str) -> None:
@@ -274,7 +302,7 @@ def phase_device() -> str:
         f"cuda {torch.version.cuda}")
     log("[device] nvidia-smi --query-gpu=name,power.limit --format=csv,noheader:")
     log(card)
-    return name
+    return name, card
 
 
 def phase_build():
@@ -1272,6 +1300,232 @@ def phase_step_split(trainer, device, tag: str) -> None:
         log(f"[timing]   {ms:9.3f} ms  x{count:<4d} {key[:110]}")
 
 
+def _region_video(args):
+    """One video's frame files; (bytes written, compressed files)."""
+    root, vid, seed, first = args
+    rng = np.random.default_rng(seed)
+    path = root / vid
+    path.mkdir(parents=True, exist_ok=True)
+    nbytes, packed = 0, 0
+    for f in range(int(rng.integers(RD_FRAMES[0], RD_FRAMES[1] + 1))):
+        n = int(rng.integers(RD_REGIONS[0], RD_REGIONS[1] + 1))
+        w, h = int(rng.integers(320, 1281)), int(rng.integers(240, 721))
+        x1, y1 = rng.uniform(0, w / 2, n), rng.uniform(0, h / 2, n)
+        bbox = np.stack([x1, y1, x1 + rng.uniform(1, w / 2, n), y1 + rng.uniform(1, h / 2, n)],
+                        axis=1).astype(np.float32)
+        # distinct confidences: the native reader and numpy order ties apart
+        info = {"objects_conf": ((rng.permutation(n) + 0.5) / n).astype(np.float32),
+                "objects_id": rng.integers(0, 1600, n), "image_w": w, "image_h": h}
+        x = np.abs(rng.standard_normal((n, 2048), dtype=np.float32))
+        compressed = (first + f) % 8 == 0
+        (np.savez_compressed if compressed else np.savez)(path / f"{f}.npz", x=x, bbox=bbox,
+                                                          info=info)
+        nbytes += (path / f"{f}.npz").stat().st_size
+        packed += compressed
+    return nbytes, packed
+
+
+def _realdata_inputs(tree: Path):
+    """The first RD_ROWS rows of the committed MSVD split files under
+    tree/meta, and the region tree of their videos under tree/objects."""
+    meta, objects = tree / "meta", tree / "objects"
+    meta.mkdir()
+    vids = []
+    for name, rows in RD_ROWS.items():
+        lines = (ROOT / "meta_data" / name).read_text().splitlines(keepends=True)[:rows]
+        (meta / name).write_text("".join(lines))
+        vids += [line.rstrip("\n").split("\t")[1] for line in lines]
+    vids = list(dict.fromkeys(vids))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        sizes = list(pool.map(_region_video, [(objects, v, RD_SEED * 100003 + i, i)
+                                              for i, v in enumerate(vids)]))
+    nbytes, packed = sum(b for b, _ in sizes), sum(c for _, c in sizes)
+    files = sum(1 for _ in objects.rglob("*.npz"))
+    return meta, objects, dict(videos=len(vids), files=files, compressed=packed, bytes=nbytes,
+                               seconds=time.perf_counter() - t0)
+
+
+def _loader_alone(cfg, card: str, numpy_reader: bool):
+    """RD_LOADER_BATCHES train batches of the config's loader, no model:
+    (seconds, a digest a batch)."""
+    import hashlib
+
+    from demovlp_tpu_torch.data.loader import MultiDistTextObjectVideoDataLoader
+
+    old = os.environ.get("DEMOVLP_NATIVE")
+    if numpy_reader:
+        os.environ["DEMOVLP_NATIVE"] = "0"
+    try:
+        dl = MultiDistTextObjectVideoDataLoader(**cfg["data_loader"]["args"])
+        dl.set_epoch(1)
+        digests = []
+        t0 = time.perf_counter()
+        for data in dl:
+            digests.append(hashlib.sha256(data["object"].tobytes() +
+                                          data["object_mask"].tobytes()).hexdigest())
+            if len(digests) == RD_LOADER_BATCHES:
+                break
+        secs = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("DEMOVLP_NATIVE", None)
+        else:
+            os.environ["DEMOVLP_NATIVE"] = old
+    b, f = dl.batch_size, dl.dataset.segments
+    path = "numpy per-sample" if numpy_reader else "native whole-batch"
+    log(f"[realdata] ({card}) loader alone, {path} path, {dl.num_workers} workers: "
+        f"{len(digests)} batches of {b} x {f} frames in {secs:.3f} s: "
+        f"{len(digests) / secs:.2f} batches/s, {len(digests) * b * f / secs:.1f} frames/s")
+    return secs, digests
+
+
+def _data_inclusive_ms(trainer, steps: int = 16) -> float:
+    """ms a train step with the data: one more epoch's first `steps` steps,
+    from the loader's first batch to the card's last result (host decode,
+    tokenize, transfer and step, as the trainer runs them)."""
+    from demovlp_tpu_torch.train.steps import batch_to_device, prepare_batch
+
+    dl = trainer.data_loader[0]
+    dl.set_epoch(3)
+    lr = trainer.current_lr(1)
+    n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for data in dl:
+        trainer._train_step(batch_to_device(prepare_batch(data, trainer.tokenizer),
+                                            trainer.device, trainer.transfer_dtype), lr)
+        n += 1
+        if n == steps:
+            break
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def phase_realdata(tmp: Path, device, card: str, pretrain, ft_trainer):
+    """The train CLI on configs/ft/msvd_o2t-select.json: real MSVD ids and
+    captions through MSVDObjectSelect, regions from a seeded npz tree
+    through the native whole-batch decode, from the train phase's f = 1
+    checkpoint. Returns (trainer, launches, the first batch's local inputs)."""
+    from demovlp_tpu_torch.cli.train import run
+    from demovlp_tpu_torch.data import native
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    phase_t0 = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="realdata-") as tree:
+        meta, objects, made = _realdata_inputs(Path(tree))
+        log(f"[realdata] region tree: {made['videos']} videos, {made['files']} frame files "
+            f"({made['compressed']} np.savez_compressed), {made['bytes'] / 2**30:.3f} GiB on disk, "
+            f"written in {made['seconds']:.1f}s")
+        if made["bytes"] >= 2 * 2**30:
+            fail(f"the region tree takes {made['bytes']} bytes, over 2 GiB")
+        cfg = json.loads(MSVD_CFG.read_text())
+        args = cfg["arch"]["args"]
+        args["text_params"].update(model="", pretrained=False)
+        args["load_checkpoint"] = str(pretrain.checkpoint.save_dir / "checkpoint-epoch1.pth")
+        dl_args = cfg["data_loader"]["args"]
+        workers = min(int(dl_args["num_workers"]), os.cpu_count() or 1)
+        dl_args.update(object_dir=str(objects), num_workers=workers)
+        cfg["trainer"].update(epochs=1, max_samples_per_epoch=512, save_dir=str(tmp / "realdata"))
+        log(f"[realdata] reduced: {MSVD_CFG.relative_to(ROOT)} with text_params.model '' and "
+            f"pretrained false (no DistilBERT in the repo: random-init text tower, full width); "
+            f"load_checkpoint = the train phase's f = 1 checkpoint (temporal embed inflated, "
+            f"zeros); epochs 1, max_samples_per_epoch 512 (16 steps of "
+            f"{dl_args['batch_size']}); save_dir under the run's temporary directory; "
+            f"object_dir = the seeded region tree; DEMOVLP_META_DIR = the first "
+            f"{RD_ROWS['MSVD_train.tsv']} rows of meta_data/MSVD_train.tsv and "
+            f"{RD_ROWS['MSVD_test.tsv']} of meta_data/MSVD_test.tsv; num_workers "
+            f"{workers} (config 16, {os.cpu_count()} CPUs)")
+        path = tmp / "realdata.json"
+        path.write_text(json.dumps(cfg))
+        os.environ["DEMOVLP_META_DIR"] = str(meta)
+        try:
+            built = not native.library_path().exists()
+            t0 = time.perf_counter()
+            reader = native.get_native_reader()
+            if reader.path.parent != ROOT / "build" / "native":
+                fail(f"the native reader was not built from the port's copy: {reader.path}")
+            log(f"[realdata] native reader {reader.path.relative_to(ROOT)} from "
+                f"{native.SRC.relative_to(ROOT)}, "
+                + (f"built by g++ in {time.perf_counter() - t0:.1f}s" if built else
+                   "found already built") + f", {reader.n_threads} threads")
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            native.reset_stats()
+            xk.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer = run(["-c", str(path)], fence_steps=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, stats = dict(xk.LAUNCHES), dict(native.STATS)
+            peak = torch.cuda.max_memory_allocated()
+            train_ds = trainer.data_loader[0].dataset
+            val_ds = trainer.valid_data_loader[0].dataset
+            resamples = train_ds.resample_count + val_ds.resample_count
+            inputs = _first_batch_local(trainer)
+            rd_ms = _data_inclusive_ms(trainer)
+            ft_ms = _data_inclusive_ms(ft_trainer)
+            native_s, native_digests = _loader_alone(cfg, card, numpy_reader=False)
+            numpy_s, numpy_digests = _loader_alone(cfg, card, numpy_reader=True)
+        finally:
+            os.environ.pop("DEMOVLP_META_DIR", None)
+    steps, losses, log_ = trainer.step_times, trainer.step_losses, trainer.final_log
+    batch, f = trainer.data_loader[0].batch_size, train_ds.segments
+    step_ms = 1e3 * float(np.median(steps[1:]))
+    ft_step_ms = 1e3 * float(np.median(ft_trainer.step_times[1:]))
+    n_val = int(bool(cfg["trainer"].get("init_val", True))) + cfg["trainer"]["epochs"]
+    want_frames = len(steps) * batch * f + n_val * len(val_ds) * f
+    log(f"[realdata] ({card}) {len(steps)} steps of {batch} ({type(train_ds).__name__}, f={f}, "
+        f"k=30, bf16 towers, f32 local loss, full width): median step {step_ms:.3f} ms over "
+        f"steps 2-{len(steps)} (card fenced after each step; decode, tokenize and transfer "
+        f"outside the fence), {batch / step_ms * 1e3:.1f} pairs/s; the [finetune] phase's "
+        f"synthetic median in this call {ft_step_ms:.3f} ms; step 1 {1e3 * steps[0]:.3f} ms; "
+        f"wall with two validations and checkpoint {wall:.1f}s")
+    log(f"[realdata] ({card}) a step with its data (16 steps of one more epoch, from the "
+        f"loader's first batch to the card's last result): real data {rd_ms:.3f} ms, "
+        f"synthetic ([finetune] trainer) {ft_ms:.3f} ms, difference {rd_ms - ft_ms:.3f} ms")
+    log(f"[realdata] ({card}) peak device memory {peak / 2**30:.3f} GiB, of which "
+        f"{held / 2**30:.3f} GiB held before the run (earlier phases' trainers): "
+        f"{(peak - held) / 2**30:.3f} GiB the run's own")
+    log(f"[realdata] step ms: {[round(1e3 * t, 3) for t in steps]}")
+    log(f"[realdata] loss at step 1 {losses[0]:.6f}, at step {len(losses)} {losses[-1]:.6f}")
+    log(f"[realdata] kernel launches in this run (train steps and validation): {launches}")
+    log(f"[realdata] native reader: {stats['frames_native']} frames decoded natively "
+        f"(expected {want_frames}: {len(steps)} x {batch} x {f} train, {n_val} validations "
+        f"x {len(val_ds)} x {f}), rows redone per sample {stats['rows_redone']}, "
+        f"resample_count {resamples}")
+    log(f"[realdata] val over {len(val_ds)} test videos: R@1 {log_['val_0_t2v_metrics_R1']}, "
+        f"R@5 {log_['val_0_t2v_metrics_R5']}, R@10 {log_['val_0_t2v_metrics_R10']} (t2v); "
+        f"v2t R@1 {log_['val_0_v2t_metrics_R1']}")
+    log(f"[realdata] ({card}) loader alone: native whole-batch {native_s:.3f} s, numpy "
+        f"per-sample {numpy_s:.3f} s for {RD_LOADER_BATCHES} batches "
+        f"({numpy_s / native_s:.2f}x); the two paths' batches identical: "
+        f"{native_digests == numpy_digests}")
+    if type(train_ds).__name__ != "MSVDObjectSelect" or len(val_ds) != RD_ROWS["MSVD_test.tsv"]:
+        fail(f"expected MSVDObjectSelect over {RD_ROWS['MSVD_test.tsv']} test videos, got "
+             f"{type(train_ds).__name__} over {len(val_ds)}")
+    if len(steps) != 16:
+        fail(f"expected 16 real-data steps, got {len(steps)}")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite real-data loss: {losses}")
+    if stats["frames_native"] != want_frames or stats["rows_redone"] != 0:
+        fail(f"the native whole-batch decode did not decode the batches: {stats}, expected "
+             f"{want_frames} frames")
+    for k in (xk.KERNEL, xk.KERNEL_DQ, xk.KERNEL_DC):
+        if launches[k] < 32:
+            fail(f"{k} launched {launches[k]} times in 16 real-data steps (2 a step expected)")
+    for k in ("R1", "R5", "R10"):
+        if not np.isfinite(log_[f"val_0_t2v_metrics_{k}"]):
+            fail(f"non-finite validation R@{k[1:]}: {log_}")
+    if native_digests != numpy_digests or len(native_digests) != RD_LOADER_BATCHES:
+        fail("the native whole-batch and numpy per-sample loaders gave different batches")
+    log(f"[realdata] phase wall {time.perf_counter() - phase_t0:.1f}s (tree, build, run, "
+        f"timings, removal)")
+    return trainer, launches, inputs
+
+
 def phase_timing(cat, device):
     """Kernel and plain version on the main path's own local-sims inputs."""
     from demovlp_tpu_torch.ops import xattn_kernel as xk
@@ -1311,7 +1565,7 @@ def phase_timing(cat, device):
 
 
 def main() -> None:
-    kind = phase_device()
+    kind, card = phase_device()
     from demovlp_tpu_torch.device import resolve_device
     from demovlp_tpu_torch.ops import xattn_kernel as xk
 
@@ -1339,6 +1593,8 @@ def main() -> None:
         trainer, train_launches = phase_train(tmp, device)
         phase_train_ref(device, "finetune-ref", _narrow_f8_config(tmp))
         ft_trainer, ft_launches = phase_finetune(tmp, device, trainer)
+        rd_trainer, rd_launches, rd_inputs = phase_realdata(tmp, device, card, trainer,
+                                                            ft_trainer)
         phase_qa(tmp, device)
         phase_mc(tmp, device)
     inputs = phase_train_local(trainer)
@@ -1348,6 +1604,9 @@ def main() -> None:
     ft_local = ft_trainer.loss.local_loss
     tf8 = phase_timing_train(_first_batch_local(ft_trainer), ft_local.focal_type == "equal",
                              ft_local.local_dtype == "bfloat16", "finetune f=8", device)
+    rd_local = rd_trainer.loss.local_loss
+    trd = phase_timing_train(rd_inputs, rd_local.focal_type == "equal",
+                             rd_local.local_dtype == "bfloat16", "msvd realdata", device)
     ta = phase_timing_attention(device)
     phase_step_split(trainer, device, "train")
     phase_step_split(ft_trainer, device, "finetune f=8")
@@ -1380,7 +1639,8 @@ def main() -> None:
                               "demovlp_tpu/ops/pallas_xattn.py:413")}
     for name, (file, main_kernel, replaces) in sources.items():
         for suffix, rows, launches, errs in (("", tt, train_launches, err_train),
-                                             ("_f8", tf8, ft_launches, err_f8)):
+                                             ("_f8", tf8, ft_launches, err_f8),
+                                             ("_msvd", trd, rd_launches, err_f8)):
             if name not in rows:  # f = 1 trains the bf16 forward, f = 8 the f32 one
                 continue
             r = rows[name]
@@ -1418,7 +1678,10 @@ def main() -> None:
         "and the backward kernels: one train step's two launches at 128x128 (f = 1), launches "
         "those of the 16-step train run; the _f8 rows (the f32 forward and the backward "
         "kernels): one fine-tune step's two launches at 32x32 (f = 8, f32 mode), launches those "
-        "of the 16-step fine-tune run (the forward's include validation); an f32-mode bound "
+        "of the 16-step fine-tune run (the forward's include validation); the _msvd rows: the "
+        "same on the real-data run's first batch (MSVD ids and captions, npz regions through "
+        "the native decode), launches those of its 16 steps and two validations, max_abs_err "
+        "that of the f = 8 checks; an f32-mode bound "
         f"counts {TF32_PASSES} TF32 passes at {PEAK_TF32_FLOPS:.3g} FLOP/s, a bf16 one the bf16 "
         "peak; "
         "max_abs_err of the training kernels is the worst of the training-shape checks (the "

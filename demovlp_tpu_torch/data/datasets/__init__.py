@@ -1,17 +1,39 @@
-"""Dataset adapters ported so far: name -> class."""
+"""Dataset adapters: name -> class (the JAX package's registry,
+demovlp_tpu/data/datasets/__init__.py)."""
 from demovlp_tpu_torch.data.datasets.base import RegionDataset
+from demovlp_tpu_torch.data.datasets.cc3m import ConceptualCaptions3MObjectSelect
+from demovlp_tpu_torch.data.datasets.didemo import DiDeMoObjectSelect
+from demovlp_tpu_torch.data.datasets.lsmdc import LSMDCMCObjectSelect, LSMDCObjectSelect
+from demovlp_tpu_torch.data.datasets.msrvtt import (MSRVTTMCObjectSelect, MSRVTTObjectSelect,
+                                                    MSRVTTQAObjectSelect)
+from demovlp_tpu_torch.data.datasets.msvd import MSVDObjectSelect, MSVDQAObjectSelect
 from demovlp_tpu_torch.data.datasets.synthetic import SyntheticObjectSelect
+from demovlp_tpu_torch.data.datasets.tgif import TGIFFrameObjectSelect
+from demovlp_tpu_torch.data.datasets.webvid import WebVidObjectSelect
 
-DATASET_REGISTRY = {cls.__name__: cls for cls in [SyntheticObjectSelect]}
+DATASET_REGISTRY = {
+    cls.__name__: cls
+    for cls in [
+        MSRVTTObjectSelect,
+        MSRVTTQAObjectSelect,
+        MSRVTTMCObjectSelect,
+        WebVidObjectSelect,
+        ConceptualCaptions3MObjectSelect,
+        MSVDObjectSelect,
+        MSVDQAObjectSelect,
+        DiDeMoObjectSelect,
+        LSMDCObjectSelect,
+        LSMDCMCObjectSelect,
+        TGIFFrameObjectSelect,
+        SyntheticObjectSelect,
+    ]
+}
 
 
 def dataset_object_loader(dataset_name: str, **kwargs) -> RegionDataset:
     if dataset_name not in DATASET_REGISTRY:
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported (ported: {sorted(DATASET_REGISTRY)})"
-        )
+        raise NotImplementedError(f"Dataset: {dataset_name} not found.")
     return DATASET_REGISTRY[dataset_name](dataset_name=dataset_name, **kwargs)
 
 
-__all__ = ["RegionDataset", "SyntheticObjectSelect", "DATASET_REGISTRY",
-           "dataset_object_loader"]
+__all__ = ["RegionDataset", "DATASET_REGISTRY", "dataset_object_loader"] + list(DATASET_REGISTRY)

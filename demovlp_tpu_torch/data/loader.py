@@ -1,4 +1,4 @@
-"""Data loader (cut-down copy of demovlp_tpu/data/loader.py), one process
+"""Data loader (copy of demovlp_tpu/data/loader.py), one process
 (`process_index` 0 of `process_count` 1, passed explicitly).
 
 Train loaders shuffle with the permutation
@@ -7,8 +7,11 @@ partial batch; eval loaders keep the dataset order and the partial batch.
 Sample i of epoch e is drawn with `SeedSequence([seed, e, i])`, so the
 batches equal the JAX loader's batch for batch. A background thread
 assembles the next batches with a thread pool while the caller consumes
-the current one. Length grouping and multi-process sharding wait for a
-later slice.
+the current one. Where the dataset decodes its regions with the base
+class's reader and the native reader is on (data/native.py), one native
+call decodes a whole batch into its final buffers (`_fetch_batch_native`);
+otherwise each sample is fetched on its own and the samples are stacked.
+Length grouping and multi-process sharding are not ported.
 """
 from __future__ import annotations
 
@@ -19,19 +22,15 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
-from demovlp_tpu_torch.data.datasets import dataset_object_loader
+from demovlp_tpu_torch.data import native
+from demovlp_tpu_torch.data.datasets import RegionDataset, dataset_object_loader
+from demovlp_tpu_torch.data.regions import REGION_DIM
+from demovlp_tpu_torch.data.transforms import init_transform_dict
 
 _PREFETCH = 2  # batches assembled ahead of the consumer
 
 
-def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Stack per-sample dicts into a fixed-shape numpy batch."""
-    batch: Dict[str, Any] = {
-        "object": np.stack([it["object"] for it in items]).astype(np.float32),
-        "object_mask": np.stack([it["object_mask"] for it in items]).astype(np.float32),
-        "text": [it["text"] for it in items],
-        "meta": [it["meta"] for it in items],
-    }
+def _task_fields(batch: Dict[str, Any], items: List[Dict[str, Any]]) -> Dict[str, Any]:
     if "label" in items[0]:
         batch["label"] = np.asarray([it["label"] for it in items], dtype=np.int32)
     if "question_id" in items[0]:
@@ -39,6 +38,16 @@ def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
     if "mc_id" in items[0]:
         batch["mc_id"] = [it["mc_id"] for it in items]
     return batch
+
+
+def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Stack per-sample dicts into a fixed-shape numpy batch."""
+    return _task_fields({
+        "object": np.stack([it["object"] for it in items]).astype(np.float32),
+        "object_mask": np.stack([it["object_mask"] for it in items]).astype(np.float32),
+        "text": [it["text"] for it in items],
+        "meta": [it["meta"] for it in items],
+    }, items)
 
 
 class RegionDataLoader:
@@ -68,9 +77,54 @@ class RegionDataLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _fetch(self, idx: int) -> Dict[str, Any]:
+        return self.dataset.get_item(int(idx), self._rng(idx))
+
+    def _rng(self, idx) -> np.random.Generator:
         # (seed, epoch, index) as the JAX loader seeds it
-        rng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch, int(idx)]))
-        return self.dataset.get_item(int(idx), rng)
+        return np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch, int(idx)]))
+
+    def _native_batch_reader(self):
+        """The native reader where whole-batch decoding applies: the native
+        reader is on and the dataset decodes with the base class's
+        `_load_objects` (CC3M's images and the synthetic data override it
+        and take the per-sample path); else None."""
+        ds = self.dataset
+        if (not native.native_enabled() or not isinstance(ds, RegionDataset)
+                or type(ds)._load_objects is not RegionDataset._load_objects):
+            return None
+        return native.get_native_reader()
+
+    def _fetch_batch_native(self, batch_idx, reader, pool) -> Dict[str, Any]:
+        """One native call decodes the whole batch's frame files into the
+        final (B, F, K, 2054) buffers. `plan_item` draws each sample's
+        generator values as `get_item` does, so the batch equals
+        `collate(pool.map(self._fetch, batch_idx))`; a row whose file the
+        reader cannot decode is redone on the per-sample path, with the same
+        generator (counted in native.STATS["rows_redone"])."""
+        ds = self.dataset
+        plans = list(pool.map(lambda idx: ds.plan_item(int(idx), self._rng(idx)), batch_idx))
+        b, f, k = len(plans), int(ds.segments), ds.object_num
+        feat = np.zeros((b * f, k, REGION_DIM), dtype=np.float32)
+        mask = np.zeros((b * f, k), dtype=np.float32)
+        lens = np.zeros(b * f, dtype=np.int32)
+        # a subclass whose plan gives another frame count than `segments`
+        # takes the per-sample path (placeholders decode to an error status)
+        bad = np.array([len(paths) != f for paths, _ in plans])
+        flat = [p for paths, _ in plans for p in (paths if len(paths) == f else [""] * f)]
+        status = reader.read_paths_into(flat, k, feat, mask, lens)
+        feat = feat.reshape(b, f, k, REGION_DIM)
+        mask = mask.reshape(b, f, k)
+        bad |= status.reshape(b, f).any(axis=1)
+        items = [data for _, data in plans]
+        for i in np.nonzero(bad)[0]:
+            item = self._fetch(int(batch_idx[i]))
+            feat[i] = item["object"]
+            mask[i] = item["object_mask"]
+            items[i] = item
+        native.count("rows_redone", int(bad.sum()))
+        return _task_fields({"object": feat, "object_mask": mask,
+                             "text": [d["text"] for d in items],
+                             "meta": [d["meta"] for d in items]}, items)
 
     def batch_indices(self) -> List[np.ndarray]:
         """This epoch's sample indices, batch by batch."""
@@ -85,6 +139,7 @@ class RegionDataLoader:
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         batches = self.batch_indices()
+        reader = self._native_batch_reader()
         out_q: queue.Queue = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
         sentinel = object()
@@ -102,7 +157,11 @@ class RegionDataLoader:
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
                     for idx in batches:
-                        if not put(collate(list(pool.map(self._fetch, idx)))):
+                        if reader is not None:
+                            batch = self._fetch_batch_native(idx, reader, pool)
+                        else:
+                            batch = collate(list(pool.map(self._fetch, idx)))
+                        if not put(batch):
                             return
             except BaseException as exc:  # hand the failure to the consumer
                 put(exc)
@@ -134,14 +193,19 @@ class MultiDistTextObjectVideoDataLoader(RegionDataLoader):
     """Config-surface constructor (the JAX package's kwargs)."""
 
     def __init__(self, dataset_name: str, text_params: dict, object_params: dict,
-                 split: str = "train", batch_size: int = 1, num_workers: int = 1,
-                 shuffle: bool = True, drop_last: Optional[bool] = None,
-                 seed: int = 0, length_grouped: bool = False, **_unused):
+                 data_dir: str = "", object_dir: str = "", metadata_dir: Optional[str] = None,
+                 split: str = "train", tsfm_params: Optional[dict] = None,
+                 cut: Optional[str] = None, subsample: float = 1,
+                 sliding_window_stride: int = -1, reader: str = "cv2", batch_size: int = 1,
+                 num_workers: int = 1, shuffle: bool = True, drop_last: Optional[bool] = None,
+                 seed: int = 0, length_grouped: bool = False):
         if length_grouped:
             raise NotImplementedError("length-grouped batching is not ported")
         dataset = dataset_object_loader(
             dataset_name, text_params=text_params, object_params=object_params,
-            split=split,
+            data_dir=data_dir, object_dir=object_dir, metadata_dir=metadata_dir, split=split,
+            tsfms=init_transform_dict(**(tsfm_params or {})).get(split), cut=cut,
+            subsample=subsample, sliding_window_stride=sliding_window_stride, reader=reader,
         )
         if split != "train":
             shuffle = False

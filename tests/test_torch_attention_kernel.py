@@ -10,10 +10,15 @@ inside the tests that use it, so the card's machine, which has no JAX,
 collects this file.
 
 Tolerances.
-  * f32: rtol 1e-5 / atol 1e-6, what tests/test_pallas_attention.py holds
-    the Pallas kernel to against XLA (summation order only), at its Lk = 7;
-    at Lk = 141 the second product sums 20 times as many terms of order 1,
-    and the differences read up to 2.7e-6, so atol 1e-5 there.
+  * f32: the port's plain version, `grouped_attention_xla` and the Pallas
+    kernel are each held against a float64 numpy evaluation of
+    softmax(q k^T + bias) v, within F64_ULPS = 64 units of f32 rounding
+    (2^-24) of the float64 result's largest |entry|. Each is an f32
+    evaluation of the same sums in its own order (the BLAS a host links
+    decides the blocking), so each is off by rounding; holding one f32
+    result against another at a per-entry tolerance failed on hosts whose
+    BLAS blocks differently. Over 40 seeds of these inputs the worst error
+    of each of the three read 34-41 units, medians 13-16.
   * bf16 results: the probabilities and the result are rounded to bf16 on
     both sides, so a last-digit difference before a rounding moves an
     entry by one bf16 ulp; every entry within 2^-7 of the result's largest
@@ -41,7 +46,7 @@ from demovlp_tpu_torch.ops import attention_kernel as ak
 
 ROOT = Path(__file__).resolve().parents[1]
 F32 = dict(rtol=1e-5, atol=1e-6)
-F32_LONG = dict(rtol=1e-5, atol=1e-5)  # Lk = 141
+F64_ULPS = 64  # f32 results vs float64, in units of 2^-24 of the largest |entry|
 BF16_REL = 2.0 ** -7
 
 
@@ -68,6 +73,13 @@ def _torch(q, k, v, bias, dtype=torch.float32):
     return [torch.from_numpy(x).to(dtype) for x in (q, k, v)] + [torch.from_numpy(bias)]
 
 
+def _attention_f64(q, k, v, bias):
+    q, k, v, bias = (x.astype(np.float64) for x in (q, k, v, bias))
+    logits = np.einsum("gqd,gkd->gqk", q, k) + bias[:, None, :]
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return np.einsum("gqk,gkd->gqd", e / e.sum(-1, keepdims=True), v)
+
+
 def _assert_bf16_close(got, want):
     err = np.abs(got - want).max()
     assert err <= BF16_REL * np.abs(want).max(), (err, np.abs(want).max())
@@ -83,12 +95,17 @@ def test_plain_matches_xla_and_pallas_f32(shape):
 
     q, k, v, bias = _inputs(*shape)
     bias[0] = -100.0  # a fully masked group (the JAX test's value)
-    tol = F32 if shape[2] < 128 else F32_LONG
-    got = ak.grouped_attention(*_torch(q, k, v, bias)).numpy()
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, _jax(grouped_attention_xla, q, k, v, bias), **tol)
-    np.testing.assert_allclose(
-        got, _jax(grouped_attention_pallas, q, k, v, bias, interpret=True), **tol)
+    want = _attention_f64(q, k, v, bias)
+    bound = F64_ULPS * 2.0 ** -24 * np.abs(want).max()
+    results = {
+        "port plain": ak.grouped_attention(*_torch(q, k, v, bias)).numpy(),
+        "xla": _jax(grouped_attention_xla, q, k, v, bias),
+        "pallas": _jax(grouped_attention_pallas, q, k, v, bias, interpret=True),
+    }
+    for name, got in results.items():
+        assert np.isfinite(got).all(), name
+        err = np.abs(got.astype(np.float64) - want).max()
+        assert err <= bound, (name, err, bound)
 
 
 @pytest.mark.parametrize("shape", _SHAPES, ids=["jax-test", "lk141"])

@@ -1,7 +1,8 @@
 """The port stands alone: no module of demovlp_tpu_torch (nor chip_smoke.py)
-imports JAX, flax, optax, orbax or the JAX package, every port module
-imports with those blocked, and entry points refuse to run without a card
-unless the CPU is asked for."""
+imports JAX, flax, optax, orbax, the JAX package or pandas (it reads its
+metadata with the standard library), every port module imports with those
+blocked, and entry points refuse to run without a card unless the CPU is
+asked for."""
 from __future__ import annotations
 
 import ast
@@ -14,7 +15,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "demovlp_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "demovlp_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "demovlp_tpu", "pandas"}
 
 
 def _sources():

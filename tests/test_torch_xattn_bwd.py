@@ -19,6 +19,8 @@ Tolerances.
     largest magnitude; the forward (f32 after the rounded products) at the
     f32 tolerance.
   * plain backward vs autograd (f32, the same plain forward): 1e-5 / 1e-7.
+  * plain backward, blocked and in one block, vs float64: see
+    test_plain_backward_blocking_matches_one_block.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from demovlp_tpu_torch.ops import xattn_kernel as xk
 FWD_TOL = dict(rtol=1e-4, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-3, atol=3e-5)
 BF16_GRAD_TOL = dict(rtol=1e-2, atol=3e-5)
+BWD_F64_ULPS = 64  # f32 vs float64, in units of 2^-24 of the largest |entry|
 
 
 def _inputs(ni, nc, r, w, d=32, seed=0):
@@ -122,9 +125,20 @@ def test_plain_backward_matches_autograd(focal):
     np.testing.assert_allclose(dq.numpy(), want_dq.numpy(), rtol=1e-5, atol=1e-7)
 
 
-def test_plain_backward_blocking_is_exact():
+def test_plain_backward_blocking_matches_one_block():
     """More than one 64-item block a side: the blocked sums of the plain
-    backward agree with one block over everything."""
+    backward, and the same backward over one block of everything, are each
+    held against a float64 evaluation of the same function
+    (`_backward_block` and `_unit_backward` on `.double()` inputs).
+
+    Bound: BWD_F64_ULPS = 64 units of f32 rounding (2^-24) of the float64
+    result's largest |entry|, per gradient. Blocking only reorders f32
+    sums, and f32 addition is not associative, so the two f32 results are
+    not equal; each is a rounding of the float64 value. Each gradient entry
+    chains sums over Lq, Ls, D and up to 70 partner items, and the
+    differences one BLAS blocking or another gives read 15-19 units of the
+    largest entry here. The blocked and the one-block results differ from
+    each other by at most twice the bound."""
     rng = np.random.RandomState(8)
     ctx = torch.from_numpy(rng.randn(70, 4, 8).astype(np.float32))
     qry = torch.from_numpy(rng.randn(66, 5, 8).astype(np.float32))
@@ -133,8 +147,16 @@ def test_plain_backward_blocking_is_exact():
     blocked = xk.direction_sim_bwd_plain(ctx, qry, mask, g, 20.0, True)
     dq_direct, dqn, dcn = xk._backward_block(ctx, qry, mask, g, 20.0, True, False)
     whole = (xk._unit_backward(dcn, ctx), dq_direct + xk._unit_backward(dqn, qry))
-    for a, b in zip(blocked, whole):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-7)
+    c64, q64 = ctx.double(), qry.double()
+    dq_direct, dqn, dcn = xk._backward_block(c64, q64, mask.double(), g.double(), 20.0, True,
+                                             False)
+    exact = (xk._unit_backward(dcn, c64), dq_direct + xk._unit_backward(dqn, q64))
+    for a, b, want in zip(blocked, whole, exact):
+        assert a.dtype == b.dtype == torch.float32
+        bound = BWD_F64_ULPS * 2.0 ** -24 * float(want.abs().max())
+        assert float((a.double() - want).abs().max()) <= bound
+        assert float((b.double() - want).abs().max()) <= bound
+        assert float((a - b).abs().max()) <= 2 * bound
 
 
 def test_mask_gets_no_gradient_and_cpu_never_launches():
