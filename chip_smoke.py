@@ -16,7 +16,15 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 pairs a block) and the two backward kernels in both modes,
                 each bf16 forward and each backward run twice and required
                 bit-identical; both directions, both focal types, padded and
-                fully masked items included;
+                fully masked items included; then the -fast pre-training's
+                text-bucket shapes (128 x 128 items, (Ls, Lq) = (30, 31),
+                (31, 30), (30, 47), (47, 30), (30, 63), (63, 30)): every
+                kernel in both modes against its plain version, each run
+                twice and held bit-identical (the f32 forward too), with the
+                S the launchers chose printed; in f32 'prob' a backward
+                entry may exceed the tight tolerance only in a row with a
+                leaky-ReLU kink pair, and there only by what that pair's
+                slope flip can move it (kink_bounds);
   4. reference — the serving CLI on the small smoke config, on the card
                 and on the CPU, must agree;
   5. serve    — the serving CLI at full width (DistilBERT 6x768, 12-block
@@ -27,6 +35,16 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 read just after), top-10;
   6. bf16     — the first batch of that serve again on the CPU: the card's
                 bf16 embeddings must agree with it;
+  6b. query   — the query CLI at full width (the serve's seeded weights)
+                against the index the serve wrote: 64 queries (60 gallery
+                captions, 4 free-text) x 1000 videos, then one query; the
+                f32 forward launched twice a call (launch counts reset just
+                before); the gallery captions' text embeddings against the
+                serve's rows, and on a 100-video slice the card's
+                query_retrieval against the CPU's and the card's scoring
+                against the CPU's on the same embeddings; the single query's
+                scoring over the whole gallery, card against CPU, and the
+                CLI's single-query sims against it;
   7. train-ref — two deterministic train steps of the f32 smoke config on
                 the card and on the CPU from the same weights and batches:
                 losses, step-1 gradients and parameters must agree;
@@ -34,6 +52,22 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 (f=1 x k=30, batch 128, bf16 towers and local loss, one
                 epoch = 16 steps, then validation over the val split), the
                 launch counts reset just before and read just after;
+  8b. pretrain-fast — the train CLI at full width on
+                configs/bench/ab_local_bf16_fast.json (the -fast path: long-tail
+                captions, length-grouped batches, text trimmed to 32 / 48 / 64;
+                16 steps, then validation), launch counts reset just before and
+                read just after, by kernel and by (Ls, Lq): every step's text
+                length must be the one worked out on the host before the run
+                (FAST_EPOCH1_LENGTHS, from the CPU), at least two lengths, 16
+                finite losses; each step's length and fenced ms, the median a
+                bucket, peak memory, [train]'s median beside it;
+  8c. mlm     — train-ref with mlm.weight 0.5 and text buckets (masks drawn
+                on the host as the trainer draws them), then 4 full-width
+                steps of the -fast config with mlm.weight 0.5;
+  8d. remat   — one full-width step of ab_local_bf16.json with and without
+                remat from the same weights, batch and dropout seed: the
+                losses and the region tower's gradients agree, the peak
+                memory of each printed;
   9. train-local — on that run's first batch, the local loss and its
                 gradients through the kernels and through the plain versions;
  10. finetune-ref — two deterministic f32 train steps at f = 8 x k = 30 with
@@ -62,6 +96,9 @@ Phases, each fatal on failure (exit code != 0, and no result line):
  12. qa       — train_qa at full width on configs/bench/qa_synthetic_f8.json
                 (batch 64, 1500 answers, 16 steps, a val pass); card vs CPU
                 on the f32 smoke config: losses and logits of two steps;
+ 12b. predict-qa — the predict CLI with the qa run's checkpoint over
+                qa_synthetic_f8.json's test split: the predictions equal the
+                argmax of the QA trainer's own eval logits; questions/s;
  13. mc       — train_mc at full width on configs/bench/mc_synthetic_f8.json
                 (256 items, 5 options, 8 items a call); card vs CPU on the
                 smoke config: the option scores;
@@ -75,8 +112,10 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 the forward and backward kernels at f = 8 (the fine-tune's first
                 batch; each backward beside its one-block-an-item time, with
                 the split S it chose and the kernels the profiler saw),
-                grouped attention at the region tower's f = 8 shapes
-                (both of its kernels) beside torch's
+                the f32 forward on the 64-query call's inputs, the bf16
+                forward and the backward pair on a -fast step at its most
+                frequent bucket, grouped attention at the region tower's
+                f = 8 shapes (both of its kernels) beside torch's
                 scaled_dot_product_attention; the profiler's names of the
                 kernels that ran; and one step each of the train and
                 fine-tune runs split into towers, loss, backward and
@@ -116,6 +155,24 @@ MC_CFG = ROOT / "configs" / "bench" / "mc_synthetic_f8.json"
 SMOKE_CFG = ROOT / "configs" / "smoke" / "synthetic_retrieval.json"
 SMOKE_QA_CFG = ROOT / "configs" / "smoke" / "synthetic_qa.json"
 SMOKE_MC_CFG = ROOT / "configs" / "smoke" / "synthetic_mc.json"
+FAST_CFG = ROOT / "configs" / "bench" / "ab_local_bf16_fast.json"
+# the -fast path's text buckets (trainer.text_buckets of
+# configs/pt/o2t-cl-local-select-loss-cc-fast.json and FAST_CFG)
+FAST_BUCKETS = (32, 48, 64)
+# the bucket each of FAST_CFG's 16 epoch-1 batches lands in, worked out on
+# the CPU (the loader's length-grouped batch indices and the tokenizer,
+# no card); the [pretrain-fast] phase also works it out again on the host
+FAST_EPOCH1_LENGTHS = [32] * 9 + [64] + [32] * 6
+# [query]: free-text queries beside the gallery's own first captions
+QUERY_FREE_TEXT = ["a man plays ball with a dog in the park", "red car on the street",
+                   "a child is walking near the water and a large tree",
+                   "music video shows a group of people"]
+QUERY_SLICE = 100  # gallery videos in the card vs CPU comparison
+# [query], card vs CPU on the same slice, each side embedding the queries
+# with its own bf16 text tower: the text embeddings differ by bf16 round-off
+# (TOL_BF16_CARD of their largest entry, [bf16]), and the sims (global
+# cosine in [-1, 1] plus local cosine means in [-2, 2]) by a few times that
+TOL_QUERY_CARD = 3 * 0.03
 # the region tower's grouped attention at f = 8, k = 30, batch 32, 12 heads,
 # hd = 64, as (groups, query rows, keys): space (a frame's regions and the
 # CLS key), time (a region over the frames and the CLS key), the CLS row over
@@ -173,7 +230,8 @@ MAX_FLIP_SHARE = 1e-4
 TOL_BF16_CARD = 0.03
 # training-shape kernels against their plain versions, relative to the
 # largest entry of the plain result (max |err| / max |plain|). 'prob' in
-# f32 is summation order only. Under focal 'equal' a near-tie flip moves
+# f32 is summation order only, but for the backward's leaky-ReLU kink
+# (KINK_A0 below). Under focal 'equal' a near-tie flip moves
 # one position's weight, and in bf16 mode a last-digit difference before
 # an operand's rounding moves that operand by one bf16 ulp (2^-8); each
 # moves a few entries by much more than the rest, so those are held at a
@@ -187,6 +245,27 @@ TOL_BF16_CARD = 0.03
 TOL_TRAIN = {"f32": 1e-5, "bf16": 2e-3}
 TOL_TRAIN_FLIP = 2e-2
 MAX_TRAIN_FLIP_SHARE = 1e-2
+# the backward's other flip, in every mode and focal type: the leaky-ReLU's
+# slope jumps from 1 to 0.1 at a0 = qn . cn = 0, so where a pair's a0 lies
+# within rounding of 0 two summation orders can take different slopes and
+# move that pair's context row s and query row l (one element of da0) by
+# up to 0.9 |da1|. Two f32 orders of a 256-term dot product of unit
+# vectors differ by about 1e-7 here; KINK_A0 is ten times that. In f32
+# 'prob' (no other flip allowance) a backward entry may exceed TOL_TRAIN
+# only in a row with such a pair, and only by 0.9 |da1| summed over the
+# row's such pairs, through the row's l2norm backward (kink_bounds, in
+# float64). Seen at the text-bucket shapes:
+# context item 5 row 5 against query item 3 row 16 of the seeded
+# 128 x 128 inputs at Lq = 63, a0 = -7.8e-9 in float64, d_context 9.1e-5
+# and d_query 2.8e-4 of the largest entry in those two rows, where a
+# float64 evaluation agreed with the plain version
+KINK_A0 = 1e-6
+# remat against no remat, one bf16 step on the card: the region tower's
+# gradients, max |diff| / max |g| a tensor. The recompute runs the same
+# kernels on the same values, so they should agree bit for bit; the limit
+# is the bf16 kernels' (TOL_TRAIN), room for a reordered sum, far below
+# what a wrong recompute (a stale mask, other dropout draws) moves
+REMAT_GRAD_RTOL = TOL_TRAIN["bf16"]
 # card vs CPU on two f32 smoke train steps: as tests/test_torch_train.py
 # holds the port against JAX (summation order, amplified by lambda = 20)
 TRAIN_REF_LOSS_RTOL = 1e-5
@@ -271,6 +350,61 @@ def check_rel(name: str, got: torch.Tensor, want: torch.Tensor, tol: float,
     if rel > tol and (rel > flip_tol or share > max_share):
         fail(f"{name}: relative error {rel} (limit {tol}, or {flip_tol} with share "
              f"{share} <= {max_share})")
+    return float(err.max())
+
+
+def kink_bounds(ctx: torch.Tensor, qry: torch.Tensor, cmask: torch.Tensor, g: torch.Tensor,
+                lam: float, focal_equal: bool):
+    """(context (Bc, Ls), query (Bq, Lq)) float64: the most the leaky-ReLU's
+    slope flips can move one gradient entry of each row. A pair with
+    |a0| = |qn . cn| < KINK_A0 (float64) may take the other slope in
+    another summation order. That moves its da0 by 0.9 |da1| (da1 from the
+    plain backward in float64), its qn and cn rows by at most that (unit
+    vectors), and every entry of the row through the l2norm backward by at
+    most that over |x| + eps. Zero in a row with no such pair."""
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    c, q, m, gg = (t.double() for t in (ctx, qry, cmask, g))
+    cb = torch.zeros(ctx.shape[:2], dtype=torch.float64, device=ctx.device)
+    qb = torch.zeros(qry.shape[:2], dtype=torch.float64, device=qry.device)
+    blk = xk._BLOCK
+    for c0 in range(0, ctx.shape[0], blk):
+        cs = slice(c0, c0 + blk)
+        for q0 in range(0, qry.shape[0], blk):
+            qs = slice(q0, q0 + blk)
+            da1, f, _, _ = xk.backward_da1(c[cs], q[qs], m[cs], gg[cs, qs], lam,
+                                           focal_equal, False)
+            move = torch.where(f["a0"].abs() < KINK_A0, 0.9 * da1.abs(), 0.0)
+            cb[cs] += move.sum(dim=(1, 2))
+            qb[qs] += move.sum(dim=(0, 3))
+            del da1, f, move
+    return cb / (c.norm(dim=-1) + 1e-8), qb / (q.norm(dim=-1) + 1e-8)
+
+
+def check_backward(name: str, got: torch.Tensor, want: torch.Tensor, tol: float, flip,
+                   bound: torch.Tensor | None) -> float:
+    """A backward result against its plain version. With a flip allowance
+    (`flip`: focal 'equal', bf16 mode) as check_rel holds it. Without one
+    (f32 'prob') every entry within tol of the largest |plain| entry, and in
+    a row with a leaky-ReLU kink pair within that plus what the pair's
+    slope flip can move there (`bound`, kink_bounds)."""
+    if flip[0]:
+        return check_rel(name, got, want, tol, *flip)
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite kernel output")
+    scale = float(want.abs().max()) or 1.0
+    err = (got.double() - want.double()).abs()
+    beyond = err > tol * scale
+    over = err > tol * scale + bound[..., None]
+    kink = bound > 0
+    log(f"[kernels] {name}: max |err| / max |plain| {float(err.max()) / scale:.3e} (max "
+        f"|plain| {scale:.3e}); {int(kink.sum())} of {kink.numel()} rows hold a leaky-ReLU "
+        f"kink pair (largest row bound {float(bound.max()) / scale:.3e} of max |plain|); "
+        f"{int(beyond.sum())} entries beyond {tol:g}, in {int(beyond.any(-1).sum())} rows")
+    if bool(over.any()):
+        fail(f"{name}: {int(over.sum())} entries beyond {tol:g} of max |plain| plus their "
+             f"row's leaky-ReLU flip bound ({int((over.any(-1) & ~kink).sum())} of those "
+             "rows hold no kink pair)")
     return float(err.max())
 
 
@@ -359,15 +493,18 @@ def _train_inputs(seed: int, n: int, length: int, d: int, device):
     return feats.to(device), mask.to(device)
 
 
-def phase_kernels_train(device, n: int = 128, regions: int = 30, seed: int = 2) -> dict:
+def phase_kernels_train(device, n: int = 128, regions: int = 30, seed: int = 2,
+                        words: int = 99, buckets: bool = False) -> dict:
     """The training shapes: n x n items, D = 256, regions (Ls = `regions`:
-    30 at f = 1, 240 at f = 8) and words (Lq = 99) in both directions; both
-    modes, both focal types. The worst max abs error of each kernel is
-    returned."""
+    30 at f = 1, 240 at f = 8) and words (99; a text bucket's b - 1) in
+    both directions; both modes, both focal types. With `buckets` the f32
+    forward is also run twice and held bit-identical, and each direction
+    prints the S its launchers chose. The worst max abs error of each
+    kernel is returned."""
     from demovlp_tpu_torch.ops import xattn_kernel as xk
 
     reg, rmask = _train_inputs(seed, n, regions, 256, device)
-    wrd, wmask = _train_inputs(seed + 1, n, 99, 256, device)
+    wrd, wmask = _train_inputs(seed + 1, n, words, 256, device)
     g = torch.randn(n, n, generator=torch.Generator().manual_seed(seed + 2)).to(device)
     worst = {xk.KERNEL: 0.0, xk.KERNEL_BF16: 0.0, xk.KERNEL_DQ: 0.0, xk.KERNEL_DC: 0.0}
     for mode in ("f32", "bf16"):
@@ -383,8 +520,16 @@ def phase_kernels_train(device, n: int = 128, regions: int = 30, seed: int = 2) 
                 tag = f"train {n}x{n} Ls={ctx.shape[1]} {direction} {focal} {mode}"
                 got = xk.direction_sim(*args)
                 want = xk.direction_sim_plain(*args)
-                if bf16 and not torch.equal(got, xk.direction_sim(*args)):
-                    fail(f"{tag}: two bf16 forward runs differ (must be bit-identical)")
+                if (bf16 or buckets) and not torch.equal(got, xk.direction_sim(*args)):
+                    fail(f"{tag}: two {mode} forward runs differ (must be bit-identical)")
+                if buckets and focal == "equal":
+                    bc, ls, d = ctx.shape
+                    bq, lq, _ = qry.shape
+                    fwd_s = xk.bf16_forward_splits(bc, bq, ls, lq, d) if bf16 else 1
+                    log(f"[kernels] {tag}: S chosen: forward {fwd_s}"
+                        + ("" if bf16 else " (f32: a block a pair)") + ", (S, slots) d_query "
+                        f"{xk.backward_plan(xk.KERNEL_DQ, ctx, qry, bf16)}, d_context "
+                        f"{xk.backward_plan(xk.KERNEL_DC, ctx, qry, bf16)}")
                 worst[fwd] = max(worst[fwd], check_rel(f"{tag} forward", got, want, tol, *flip))
                 if float(got[1].abs().max()) != 0.0:
                     fail(f"{tag}: fully masked context item must score 0")
@@ -395,14 +540,28 @@ def phase_kernels_train(device, n: int = 128, regions: int = 30, seed: int = 2) 
                 torch.cuda.synchronize()
                 if not (torch.equal(dc, dc2) and torch.equal(dq, dq2)):
                     fail(f"{tag}: two backward runs differ (no atomics: must be bit-identical)")
-                worst[xk.KERNEL_DC] = max(worst[xk.KERNEL_DC],
-                                          check_rel(f"{tag} d_context", dc, pdc, tol, *flip))
-                worst[xk.KERNEL_DQ] = max(worst[xk.KERNEL_DQ],
-                                          check_rel(f"{tag} d_query", dq, pdq, tol, *flip))
+                cb, qb = (None, None) if flip[0] else kink_bounds(ctx, qry, cm, g, 20.0, eq)
+                worst[xk.KERNEL_DC] = max(worst[xk.KERNEL_DC], check_backward(
+                    f"{tag} d_context", dc, pdc, tol, flip, cb))
+                worst[xk.KERNEL_DQ] = max(worst[xk.KERNEL_DQ], check_backward(
+                    f"{tag} d_query", dq, pdq, tol, flip, qb))
                 if float(dc[1].abs().max()) != 0.0:
                     fail(f"{tag}: a fully masked context item must get a zero gradient")
-    log(f"[kernels] training shapes {n}x{n}, {regions} regions: backward kernels "
-        "bit-identical on rerun in every case")
+    log(f"[kernels] training shapes {n}x{n}, {regions} regions, {words} words: backward "
+        "kernels" + (" and both forwards" if buckets else "") + " bit-identical on rerun in "
+        "every case")
+    return worst
+
+
+def phase_kernels_buckets(device) -> dict:
+    """The -fast pre-training's bucket shapes: 128 x 128 items, D = 256,
+    (Ls, Lq) = (30, b - 1) and (b - 1, 30) for each text bucket b, every
+    kernel in both modes against its plain version, each run twice and held
+    bit-identical (FAST_BUCKETS). The worst max abs error of each kernel."""
+    worst = {}
+    for b in FAST_BUCKETS:
+        for k, v in phase_kernels_train(device, seed=60 + b, words=b - 1, buckets=True).items():
+            worst[k] = max(worst.get(k, 0.0), v)
     return worst
 
 
@@ -641,23 +800,35 @@ def phase_bf16(tmp: Path, cat) -> None:
 
 def _two_train_steps(device, cfg=None):
     """Two deterministic train steps of an f32 config (default: the smoke
-    config) from the seeded init: (losses, step-1 gradients, parameters
-    after step 2), on the host."""
+    config) from the seeded init, its text buckets and MLM objective
+    included (masks drawn as the trainer draws them, from default_rng(1)):
+    (losses, step-1 gradients, parameters after step 2), on the host."""
     from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.data.mlm import mask_batch_text_tokens
     from demovlp_tpu_torch.train.steps import (batch_to_device, make_retrieval_train_step,
-                                               prepare_batch)
+                                               parse_text_buckets, prepare_batch)
 
     cfg = cfg or json.loads(SMOKE_CFG.read_text())
     model = common.build_train_model(cfg, device, seed=0)
     opt = common.build_optimizer(cfg, model.parameters())
-    step = make_retrieval_train_step(model, common.build_loss(cfg), opt, deterministic=True)
+    mlm = cfg.get("mlm", {}) or {}
+    weight = float(mlm.get("weight", 0.0))
+    step = make_retrieval_train_step(model, common.build_loss(cfg), opt, deterministic=True,
+                                     mlm_weight=weight)
     dl = common.init_dataloaders(cfg)[0][0]
     dl.set_epoch(1)
     tok = common.build_tokenizer_from_config(cfg)
+    buckets = parse_text_buckets(cfg["trainer"])
+    mask_rng = np.random.default_rng(1)
     lr = float(cfg["optimizer"]["args"]["lr"])
     losses, grads = [], None
     for _, data in zip(range(2), dl):
-        m = step(batch_to_device(prepare_batch(data, tok), device), lr)
+        arrays = prepare_batch(data, tok, text_buckets=buckets)
+        if weight:
+            arrays["input_ids"], arrays["mlm_labels"] = mask_batch_text_tokens(
+                arrays["input_ids"], arrays["attention_mask"], int(mlm.get("mask_token_id", 103)),
+                model.text_model.config.vocab_size, mask_rng, float(mlm.get("mask_prob", 0.15)))
+        m = step(batch_to_device(arrays, device), lr)
         losses.append({k: float(v) for k, v in m.items()})
         if grads is None:
             grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
@@ -677,7 +848,7 @@ def phase_train_ref(device, tag: str = "train-ref", cfg=None) -> None:
         fail(f"{tag}: the card's train steps did not launch the backward kernels: {launched}")
     for i, (a, b) in enumerate(zip(card[0], cpu[0])):
         log(f"[{tag}] step {i + 1} losses card {a} cpu {b}")
-        for k in ("loss", "global_loss", "local_loss"):
+        for k in ("loss", "global_loss", "local_loss", "mlm_loss"):
             if not np.isfinite(a[k]) or abs(a[k] - b[k]) > TRAIN_REF_LOSS_RTOL * abs(b[k]) + 1e-6:
                 fail(f"{tag} step {i + 1} {k}: card {a[k]} vs cpu {b[k]}")
     worst_g = 0.0
@@ -755,16 +926,22 @@ def phase_train(tmp: Path, device):
     return trainer, launches
 
 
-def _first_batch_local(trainer):
-    """The local embeddings and masks of a train run's first batch (f32)."""
+def _first_batch_local(trainer, length: int | None = None):
+    """The local embeddings and masks of a train run's first batch (f32),
+    its text trimmed to the run's buckets; with `length`, of the first
+    batch whose text is that long."""
     from demovlp_tpu_torch.ops.masking import additive_mask
     from demovlp_tpu_torch.train.steps import batch_to_device, prepare_batch
 
     dl = trainer.data_loader[0]
     dl.set_epoch(1)
-    data = next(iter(dl))
-    batch = batch_to_device(prepare_batch(data, trainer.tokenizer), trainer.device,
-                            trainer.transfer_dtype)
+    for data in dl:
+        arrays = prepare_batch(data, trainer.tokenizer, text_buckets=trainer.text_buckets)
+        if length is None or arrays["input_ids"].shape[1] == length:
+            break
+    else:
+        fail(f"no batch of {length} tokens in the run's first epoch")
+    batch = batch_to_device(arrays, trainer.device, trainer.transfer_dtype)
     with torch.no_grad():
         trainer.model.eval()
         out = trainer.model(batch)
@@ -951,9 +1128,9 @@ def _two_qa_steps(device):
     return losses, logits
 
 
-def phase_qa(tmp: Path, device) -> None:
+def phase_qa(tmp: Path, device):
     """train_qa at full width on configs/bench/qa_synthetic_f8.json, then
-    card vs CPU on the smoke config."""
+    card vs CPU on the smoke config. Returns the full-width trainer."""
     from demovlp_tpu_torch.cli.train_qa import run
 
     cfg = json.loads(QA_CFG.read_text())
@@ -977,7 +1154,6 @@ def phase_qa(tmp: Path, device) -> None:
         f"train acc {log_['train_acc']}, val overall acc {log_['val_0_evaluate_qa_overall_acc']}")
     if len(steps) != 16 or not all(np.isfinite(losses)):
         fail(f"QA: expected 16 finite steps, got {losses}")
-    del trainer
     card, cpu = _two_qa_steps(device), _two_qa_steps(torch.device("cpu"))
     err = float((card[1] - cpu[1]).abs().max())
     log(f"[qa] smoke config, two f32 steps: losses card {card[0]} cpu {cpu[0]}; logits after "
@@ -987,6 +1163,7 @@ def phase_qa(tmp: Path, device) -> None:
             fail(f"QA loss card {a} vs cpu {b}")
     if not torch.allclose(card[1], cpu[1], **QA_LOGITS_TOL):
         fail(f"QA logits after two steps: card vs cpu max abs err {err}")
+    return trainer
 
 
 def _mc_scores(device, n_items: int = 8):
@@ -1044,6 +1221,314 @@ def phase_mc(tmp: Path, device) -> int:
     card, cpu = _mc_scores(device), _mc_scores(torch.device("cpu"))
     check_close("mc smoke scores, card vs CPU", card, cpu, "equal", max_share=1e-2)
     return launches[xk.KERNEL]
+
+
+def _fast_lengths_on_host(cfg, epoch: int = 1) -> list:
+    """The text length of each train batch of `epoch` for a bucketed,
+    length-grouped config, worked out on the host: the loader's batch
+    indices, each sample's caption and the tokenizer; no card."""
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.train.steps import parse_text_buckets, prepare_batch
+
+    dl = common.init_dataloaders(cfg, train=True)[0][0]
+    dl.set_epoch(epoch)
+    tok, ds = common.build_tokenizer_from_config(cfg), dl.dataset
+    buckets = parse_text_buckets(cfg["trainer"])
+    lengths = []
+    for idx in dl.batch_indices():
+        batch = {"text": [ds._text(int(i), None) for i in idx],
+                 "object": np.zeros((len(idx), 1, 1, 2054), np.float32),
+                 "object_mask": np.ones((len(idx), 1, 1), np.float32)}
+        lengths.append(int(prepare_batch(batch, tok, text_buckets=buckets)["input_ids"].shape[1]))
+    return lengths
+
+
+def phase_pretrain_fast(tmp: Path, device, pretrain):
+    """The train CLI at full width on configs/bench/ab_local_bf16_fast.json
+    (the -fast path: length-grouped batches, text trimmed to 32 / 48 / 64):
+    16 steps, then validation; launch counts reset just before and read
+    just after, by kernel and by (Ls, Lq)."""
+    from demovlp_tpu_torch.cli.train import run
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    cfg = json.loads(FAST_CFG.read_text())
+    cfg["trainer"].update(epochs=1, save_dir=str(tmp / "fast"))
+    path = tmp / "fast.json"
+    path.write_text(json.dumps(cfg))
+    predicted = _fast_lengths_on_host(cfg)
+    log(f"[pretrain-fast] host prediction of the 16 batches' text lengths: {predicted} "
+        f"(worked out on the CPU before any chip call: {FAST_EPOCH1_LENGTHS})")
+    if predicted != FAST_EPOCH1_LENGTHS:
+        fail("the host's bucket prediction differs from the CPU's")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    xk.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = run(["-c", str(path)], fence_steps=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(xk.LAUNCHES), dict(xk.SHAPE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps, losses, lens = trainer.step_times, trainer.step_losses, trainer.step_text_lens
+    log(f"[pretrain-fast] {len(steps)} steps of {trainer.data_loader[0].batch_size} (f=1, k=30, "
+        f"bf16 towers and local loss, full width, long-tail captions, length-grouped, "
+        f"buckets {list(FAST_BUCKETS)}); wall with validation and checkpoint {wall:.1f}s; "
+        f"peak device memory {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB beyond "
+        f"the {held / 2**30:.3f} GiB held before the run)")
+    for i, (n, t, loss) in enumerate(zip(lens, steps, losses)):
+        log(f"[pretrain-fast] step {i + 1}: text length {n} (Lq = {n - 1}), fenced step "
+            f"{1e3 * t:.3f} ms, loss {loss:.6f}")
+    for n in sorted(set(lens)):
+        # step 1 carries first-use costs: left out where its bucket has others
+        ts = [t for i, (m, t) in enumerate(zip(lens, steps)) if m == n and i > 0] or [steps[0]]
+        log(f"[pretrain-fast] bucket {n}: {lens.count(n)} steps, median fenced step "
+            f"{1e3 * float(np.median(ts)):.3f} ms over {len(ts)} of them")
+    train_ms = 1e3 * float(np.median(pretrain.step_times[1:]))
+    log(f"[pretrain-fast] beside it, this call's [train] median step at Lq = 99 (fixed length "
+        f"100, short captions): {train_ms:.3f} ms (no claim: other captions, other batches)")
+    log(f"[pretrain-fast] kernel launches in this run: {launches}")
+    for (name, ls, lq), count in sorted(shapes.items()):
+        log(f"[pretrain-fast]   {name} (Ls, Lq) = ({ls}, {lq}): {count}")
+    log(f"[pretrain-fast] val R@1 {trainer.final_log['val_0_t2v_metrics_R1']} (t2v), "
+        f"v2t R@1 {trainer.final_log['val_0_v2t_metrics_R1']}")
+    if len(steps) != 16 or not all(np.isfinite(losses)):
+        fail(f"expected 16 finite -fast steps, got {losses}")
+    if lens != predicted:
+        fail(f"the steps' text lengths {lens} differ from the prediction {predicted}")
+    if len(set(lens)) < 2:
+        fail(f"only one bucket length ran: {set(lens)}")
+    for n in set(lens):
+        for name in (xk.KERNEL_BF16, xk.KERNEL_DQ, xk.KERNEL_DC):
+            want = 2 * lens.count(n)
+            got = shapes.get((name, 30, n - 1), 0) + shapes.get((name, n - 1, 30), 0)
+            if got != want:
+                fail(f"{name} launched {got} times at bucket {n}, expected {want}")
+    return trainer, launches
+
+
+def phase_mlm(tmp: Path, device) -> None:
+    """The MLM objective: two deterministic f32 steps of the smoke config
+    with mlm.weight 0.5 and text buckets, card vs CPU; then 4 steps at full
+    width on the -fast bench config with mlm.weight 0.5."""
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.train.retrieval import RetrievalTrainer
+
+    cfg = json.loads(SMOKE_CFG.read_text())
+    cfg["mlm"] = {"weight": 0.5, "mask_prob": 0.15, "mask_token_id": 103}
+    cfg["trainer"]["text_buckets"] = [8, 12, 16]
+    phase_train_ref(device, "mlm", cfg)
+
+    cfg = json.loads(FAST_CFG.read_text())
+    cfg["mlm"] = {"weight": 0.5, "mask_prob": 0.15, "mask_token_id": 103}
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = common.build_train_model(cfg, device, seed=0)
+    trainer = RetrievalTrainer(
+        model, common.build_loss(cfg), [], common.build_optimizer(cfg, model.parameters()), cfg,
+        tmp / "mlm", device, data_loader=common.init_dataloaders(cfg, train=True)[0],
+        tokenizer=common.build_tokenizer_from_config(cfg), max_samples_per_epoch=4 * 128,
+        transfer_dtype=torch.bfloat16, fence_steps=True)
+    trainer._train_epoch(1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    steps = [round(1e3 * t, 3) for t in trainer.step_times]
+    log(f"[mlm] full width, {FAST_CFG.name} with mlm.weight 0.5 (MLM head on "
+        f"the 768-wide text tower, 30522-word vocabulary): step ms {steps} at text lengths "
+        f"{trainer.step_text_lens}, losses {trainer.step_losses}; peak device memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB beyond the "
+        f"{held / 2**30:.3f} GiB held before)")
+    if len(steps) != 4 or not all(np.isfinite(trainer.step_losses)):
+        fail(f"[mlm] expected 4 finite full-width steps, got {trainer.step_losses}")
+    del trainer, model
+
+
+def phase_remat(device) -> None:
+    """One full-width step of configs/bench/ab_local_bf16.json with and
+    without remat, from the same weights, batch and dropout seed: the
+    losses and the region tower's gradients (which the recompute feeds)
+    must agree."""
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.train.steps import (batch_to_device, make_retrieval_train_step,
+                                               prepare_batch)
+
+    base = json.loads(TRAIN_CFG.read_text())
+    dl = common.init_dataloaders(base, train=True)[0][0]
+    dl.set_epoch(1)
+    data = next(iter(dl))
+    tok = common.build_tokenizer_from_config(base)
+    res, grads = {}, {}
+    for remat in (False, True):
+        cfg = dict(base, remat=remat)
+        held = torch.cuda.memory_allocated()
+        model = common.build_train_model(cfg, device, seed=0)
+        step = make_retrieval_train_step(model, common.build_loss(cfg),
+                                         common.build_optimizer(cfg, model.parameters()))
+        batch = batch_to_device(prepare_batch(data, tok), device, torch.bfloat16)
+        torch.manual_seed(5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = step(batch, float(cfg["optimizer"]["args"]["lr"]))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        res[remat] = dict(loss=float(m["loss"]), peak=torch.cuda.max_memory_allocated() - held,
+                          ms=ms, remat=model.object_model.remat)
+        grads[remat] = {n: p.grad.detach().float().clone()
+                        for n, p in model.object_model.named_parameters() if p.grad is not None}
+        del model, step, batch, m
+        torch.cuda.empty_cache()
+    a, b = res[False], res[True]
+    log(f"[remat] one full-width step (f=1, k=30, batch 128, bf16): loss without remat "
+        f"{a['loss']:.7f}, with {b['loss']:.7f} (bit-identical: {a['loss'] == b['loss']}); "
+        f"peak device memory beyond the model's start {a['peak'] / 2**30:.3f} GiB without, "
+        f"{b['peak'] / 2**30:.3f} GiB with; step {a['ms']:.1f} ms without, {b['ms']:.1f} ms with "
+        "(first step of a new model: first-use costs included)")
+    if not b["remat"] or a["remat"]:
+        fail("[remat] the config key did not turn the region tower's remat on and off")
+    if not np.isfinite(b["loss"]) or abs(a["loss"] - b["loss"]) > (
+            TRAIN_REF_LOSS_RTOL * abs(a["loss"]) + 1e-6):
+        fail(f"[remat] losses differ: {a['loss']} vs {b['loss']}")
+    ga, gb = grads[False], grads[True]
+    if set(ga) != set(gb) or not any(n.startswith("blocks.") for n in ga):
+        fail("[remat] the region tower's gradients differ in which parameters they hold")
+    worst, same = 0.0, 0
+    for name, g in ga.items():
+        scale = float(g.abs().max()) or 1.0
+        rel = float((gb[name] - g).abs().max()) / scale
+        worst = max(worst, rel)
+        same += int(torch.equal(g, gb[name]))
+        if not (bool(torch.isfinite(gb[name]).all()) and rel <= REMAT_GRAD_RTOL):
+            fail(f"[remat] region tower gradient {name}: max |diff| / max |g| {rel} "
+                 f"(limit {REMAT_GRAD_RTOL:g})")
+    log(f"[remat] region tower gradients, {len(ga)} tensors: {same} bit-identical, worst "
+        f"max |diff| / max |g| {worst:.3e} (limit {REMAT_GRAD_RTOL:g})")
+    del grads, ga, gb
+
+
+def phase_query(tmp: Path, cat, device):
+    """The query CLI at full width (seeded weights as in [serve]) against
+    the index [serve] wrote: 64 queries (the gallery's first captions and
+    free text), then one query; card vs CPU on a gallery slice, and the
+    single query's scoring card vs CPU over the whole gallery."""
+    from demovlp_tpu_torch import serve
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.cli.query_index import run
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    index = tmp / "emb.npz"
+    gallery, meta = serve.load_index(index)
+    n_cap = 64 - len(QUERY_FREE_TEXT)
+    queries = list(meta["raw_captions"][:n_cap]) + QUERY_FREE_TEXT
+    qfile = tmp / "queries.txt"
+    qfile.write_text("\n".join(queries) + "\n")
+    base = ["-c", str(SERVE_CFG), "--index", str(index), "-k", "10"]
+    xk.reset_launch_counts()
+    rec = run(base + ["--queries-file", str(qfile), "--output", str(tmp / "query64.json")])
+    launches, shapes = dict(xk.LAUNCHES), dict(xk.SHAPE_LAUNCHES)
+    xk.reset_launch_counts()
+    one = run(base + ["--query", QUERY_FREE_TEXT[0], "--output", str(tmp / "query1.json")])
+    launches_one = dict(xk.LAUNCHES)
+    n_gal = gallery["g_o"].shape[0]
+    log(f"[query] {len(queries)} queries x {n_gal} gallery videos (f = 8, full width, bf16 "
+        f"text tower, f32 local sims): {rec['seconds']:.3f} s = "
+        f"{len(queries) / rec['seconds']:.1f} queries/s; 1 query x {n_gal}: "
+        f"{one['seconds']:.3f} s")
+    log(f"[query] kernel launches: 64 queries {launches} by shape {shapes}; one query "
+        f"{launches_one}")
+    if rec["sims"].shape != (64, n_gal) or one["sims"].shape != (1, n_gal):
+        fail(f"query sims of shape {rec['sims'].shape} and {one['sims'].shape}")
+    if launches[xk.KERNEL] != 2 or launches_one[xk.KERNEL] != 2:
+        fail("a query call launched the f32 forward other than twice (once a direction)")
+    if not np.isfinite(rec["sims"]).all() or not np.allclose(one["sims"][0], rec["sims"][-4],
+                                                             rtol=0, atol=TOL_QUERY_CARD):
+        fail("query sims non-finite, or the single query disagrees with its row of the 64")
+
+    # the gallery's own captions embed as the serve embedded them
+    model = common.build_serving_model(json.loads(SERVE_CFG.read_text()), device)
+    tok = common.build_tokenizer_from_config(json.loads(SERVE_CFG.read_text()))
+    q = serve.embed_texts(serve.make_text_embed_step(model), queries, tok, device)
+    for k in ("g_t", "l_t"):
+        want = cat[k][:n_cap]
+        err = float(np.abs(q[k][:n_cap] - want).max() / np.abs(want).max())
+        log(f"[query] the gallery's {n_cap} captions, query path vs serve {k}: max |err| / "
+            f"max |value| {err:.3e} (limit {TOL_BF16_CARD:g})")
+        if not err <= TOL_BF16_CARD:
+            fail(f"[query] text embeddings {k} disagree with the serve's ({err})")
+    if not np.array_equal(q["t_mask"][:n_cap], cat["t_mask"][:n_cap]):
+        fail("[query] text masks differ from the serve's")
+
+    # card vs CPU on a slice of the gallery
+    gal = {k: v[:QUERY_SLICE] for k, v in gallery.items()}
+    score = common.local_score_args(json.loads(SERVE_CFG.read_text()))
+    step = serve.make_text_embed_step(model)
+    _, card_sims = serve.query_retrieval(step, queries, tok, gal, device, k=10, **score)
+    cpu_model = common.build_serving_model(json.loads(SERVE_CFG.read_text()), "cpu")
+    t0 = time.perf_counter()
+    _, cpu_sims = serve.query_retrieval(serve.make_text_embed_step(cpu_model), queries, tok,
+                                        gal, "cpu", k=10, **score)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(card_sims - cpu_sims).max())
+    log(f"[query] {len(queries)} x {QUERY_SLICE} slice, card vs CPU query_retrieval (each "
+        f"side's own bf16 text tower; CPU {cpu_s:.1f} s): max abs err {err:.3e} (limit "
+        f"{TOL_QUERY_CARD:g})")
+    if not err <= TOL_QUERY_CARD:
+        fail(f"[query] card and CPU query sims disagree ({err})")
+    # the scoring alone, on the card's query embeddings: the kernel at the
+    # non-square query shape against the CPU's plain version
+    q_slice = {k: v for k, v in q.items()}
+    got = serve.query_sims(q_slice, gal, device, **score)
+    want = serve.query_sims(q_slice, gal, "cpu", **score)
+    err_kernel = check_close(f"query sims {len(queries)}x{QUERY_SLICE}, card vs CPU scoring",
+                             torch.from_numpy(got), torch.from_numpy(want), score["focal_type"])
+    # the single query against the whole gallery (the kernel at Bq = 1), card
+    # vs CPU scoring on the card's embedding of it; the CLI's sims beside it
+    q1 = serve.embed_texts(step, QUERY_FREE_TEXT[:1], tok, device)
+    got1 = serve.query_sims(q1, gallery, device, **score)
+    want1 = serve.query_sims(q1, gallery, "cpu", **score)
+    err_one = check_close(f"query sims 1x{n_gal}, card vs CPU scoring",
+                          torch.from_numpy(got1), torch.from_numpy(want1), score["focal_type"])
+    cli_err = float(np.abs(one["sims"] - got1).max())
+    log(f"[query] the CLI's single-query sims vs the card's scoring of the same query: max "
+        f"abs err {cli_err:.3e} (limit {TOL_QUERY_CARD:g})")
+    if not cli_err <= TOL_QUERY_CARD:
+        fail(f"[query] the CLI's single-query sims disagree with the card's scoring ({cli_err})")
+    err_kernel = max(err_kernel, err_one)
+    del model, cpu_model
+    return dict(launches=launches[xk.KERNEL], err=err_kernel, q=q, gallery=gallery,
+                seconds=rec["seconds"])
+
+
+def phase_predict_qa(tmp: Path, device, qa_trainer) -> None:
+    """The predict CLI with the [qa] phase's checkpoint over
+    qa_synthetic_f8.json's test split, against the argmax of the QA
+    trainer's own eval logits for the same weights."""
+    from demovlp_tpu_torch.cli.predict_qa import run
+    from demovlp_tpu_torch.train.steps import batch_to_device, pad_batch, prepare_batch
+
+    ckpt = qa_trainer.checkpoint.save_dir / "checkpoint-epoch1.pth"
+    out = tmp / "predictions.json"
+    rec = run(["-c", str(QA_CFG), "-r", str(ckpt), "--output", str(out)])[0]
+    dl = qa_trainer.valid_data_loader[0]
+    want = {}
+    for data in dl:
+        arrays = prepare_batch(data, qa_trainer.tokenizer)
+        arrays.pop("label", None)
+        arrays, n = pad_batch(arrays, dl.batch_size)
+        logits = qa_trainer._eval_step(batch_to_device(arrays, qa_trainer.device,
+                                                       qa_trainer.transfer_dtype))
+        for qid, p in zip(data["question_id"], torch.argmax(logits[:n], -1).cpu().tolist()):
+            want[int(qid)] = p
+    got = {r["question_id"]: r["answer"] for r in rec["results"]}
+    written = json.loads(out.read_text())
+    label2ans = dl.dataset.label2ans
+    log(f"[predict-qa] {len(got)} questions (f = 8, full width, bf16, 1500 answers) from "
+        f"{ckpt.name}: {rec['seconds']:.3f} s = {len(got) / rec['seconds']:.1f} questions/s; "
+        f"equal to the trainer's own argmax: {got == want}; distinct answers "
+        f"{len(set(got.values()))}")
+    if len(written) != len(dl.dataset) or sorted(got) != sorted(want):
+        fail(f"[predict-qa] {len(written)} predictions for {len(dl.dataset)} questions")
+    if got != want or any(r["answer_text"] != label2ans[r["answer"]] for r in written):
+        fail("[predict-qa] the predictions differ from the QA trainer's own argmax")
 
 
 def _bound(flops: float, nbytes: float, peak: float):
@@ -1526,8 +2011,10 @@ def phase_realdata(tmp: Path, device, card: str, pretrain, ft_trainer):
     return trainer, launches, inputs
 
 
-def phase_timing(cat, device):
-    """Kernel and plain version on the main path's own local-sims inputs."""
+def phase_timing(cat, device, tag: str = "serve"):
+    """Kernel and plain version on the main path's own local-sims inputs
+    (`tag`: serve, one serve's 1000 x 1000 local sims; or query, one
+    query call's queries against the 1000-video gallery)."""
     from demovlp_tpu_torch.ops import xattn_kernel as xk
 
     l_o = torch.from_numpy(cat["l_o"]).float().contiguous().to(device)
@@ -1544,8 +2031,8 @@ def phase_timing(cat, device):
         nbytes = 4.0 * (bc * ls * d + bq * lq * d + bc * ls + bc * bq)
         peak, peak_text = _mode_peak(False)
         bound_ms, total["bound_by"] = _bound(flops, nbytes, peak)
-        err = check_close(f"{bc}x{bq} {direction} equal (main path inputs)", got, want, "equal")
-        log(f"[timing] {direction} {bc}x{bq} Ls={ls} Lq={lq} D={d}: kernel {ms:.3f} ms, "
+        err = check_close(f"{bc}x{bq} {direction} equal ({tag} inputs)", got, want, "equal")
+        log(f"[timing] {tag} {direction} {bc}x{bq} Ls={ls} Lq={lq} D={d}: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by {total['bound_by']} "
             f"({flops:.3e} flop at {peak_text}: {1e3 * flops / PEAK_F32_FLOPS:.3f} ms; "
             f"{nbytes:.3e} B at {PEAK_BYTES:.2e} B/s: {1e3 * nbytes / PEAK_BYTES:.3f} ms), "
@@ -1554,9 +2041,10 @@ def phase_timing(cat, device):
         total["plain_ms"] += plain_ms
         total["bound_ms"] += bound_ms
         total["err"] = max(total["err"], err)
-    log(f"[timing] xattn_sim_fwd, one serve's local sims (both directions): kernel "
-        f"{total['ms']:.1f} ms (previous design {PREV_MS['xattn_sim_fwd serve']} ms), plain "
-        f"{total['plain_ms']:.1f} ms, bound {total['bound_ms']:.1f} ms")
+    prev = f" (previous design {PREV_MS['xattn_sim_fwd serve']} ms)" if tag == "serve" else ""
+    log(f"[timing] xattn_sim_fwd, one {tag}'s local sims (both directions): kernel "
+        f"{total['ms']:.3f} ms{prev}, plain {total['plain_ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f} ms")
     names = _kernel_names(lambda: xk.direction_sim(l_o[:64], l_t[:64], o_m[:64], 20.0, True))
     log(f"[timing] xattn_sim_fwd f32, profiler: device kernels {names}")
     if not any("xattn_sim_fwd_tf32_kernel" in n for n in names):
@@ -1580,6 +2068,7 @@ def main() -> None:
             errs[k] = max(errs[k], v)
     err_train[xk.KERNEL_BF16] = max(err_train[xk.KERNEL_BF16], err_f8[xk.KERNEL_BF16],
                                     phase_kernels_bf16_forward(device))
+    err_fast = phase_kernels_buckets(device)
     err_attn = phase_kernels_attention(device)
     attn_launches = phase_attention_op(device)
     out_dir = ROOT / "chiprun_out" / "chip_smoke"
@@ -1589,16 +2078,31 @@ def main() -> None:
         phase_reference(tmp)
         cat, serve_launches = phase_serve(tmp)
         phase_bf16(tmp, cat)
+        query = phase_query(tmp, cat, device)
         phase_train_ref(device)
         trainer, train_launches = phase_train(tmp, device)
+        fast_trainer, fast_launches = phase_pretrain_fast(tmp, device, trainer)
+        phase_mlm(tmp, device)
+        phase_remat(device)
         phase_train_ref(device, "finetune-ref", _narrow_f8_config(tmp))
         ft_trainer, ft_launches = phase_finetune(tmp, device, trainer)
         rd_trainer, rd_launches, rd_inputs = phase_realdata(tmp, device, card, trainer,
                                                             ft_trainer)
-        phase_qa(tmp, device)
+        qa_trainer = phase_qa(tmp, device)
+        phase_predict_qa(tmp, device, qa_trainer)
+        del qa_trainer
         phase_mc(tmp, device)
     inputs = phase_train_local(trainer)
     t = phase_timing(cat, device)
+    tq = phase_timing({"l_o": query["gallery"]["l_o"], "o_mask": query["gallery"]["o_mask"],
+                       "l_t": query["q"]["l_t"], "t_mask": query["q"]["t_mask"]}, device,
+                      "query")
+    fast_len = max(set(fast_trainer.step_text_lens), key=fast_trainer.step_text_lens.count)
+    fast_local = fast_trainer.loss.local_loss
+    tfast = phase_timing_train(_first_batch_local(fast_trainer, fast_len),
+                               fast_local.focal_type == "equal",
+                               fast_local.local_dtype == "bfloat16",
+                               f"pretrain-fast Lq={fast_len - 1}", device)
     tt = phase_timing_train(inputs, trainer.loss.local_loss.focal_type == "equal", True, "train",
                             device)
     ft_local = ft_trainer.loss.local_loss
@@ -1626,6 +2130,20 @@ def main() -> None:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "xattn_sim_fwd_query",
+        "route": "cuda",
+        "source": src + "xattn_sim_fwd.cu",
+        "launch": "l2norm_rows_kernel (context rows), l2norm_rows_kernel "
+                  "(query rows), xattn_sim_fwd_tf32_kernel",
+        "replaces": "demovlp_tpu/ops/pallas_xattn.py:91",
+        "launches": query["launches"],
+        "max_abs_err": max(query["err"], tq["err"]),
+        "ms": tq["ms"],
+        "plain_ms": tq["plain_ms"],
+        "bound_ms": tq["bound_ms"],
+        "bound_by": tq["bound_by"],
+        "library_ms": None,
     }]
     sources = {xk.KERNEL: ("xattn_sim_fwd.cu", "xattn_sim_fwd_tf32_kernel",
                            "demovlp_tpu/ops/pallas_xattn.py:91"),
@@ -1639,6 +2157,7 @@ def main() -> None:
                               "demovlp_tpu/ops/pallas_xattn.py:413")}
     for name, (file, main_kernel, replaces) in sources.items():
         for suffix, rows, launches, errs in (("", tt, train_launches, err_train),
+                                             ("_fast", tfast, fast_launches, err_fast),
                                              ("_f8", tf8, ft_launches, err_f8),
                                              ("_msvd", trd, rd_launches, err_f8)):
             if name not in rows:  # f = 1 trains the bf16 forward, f = 8 the f32 one
@@ -1681,7 +2200,12 @@ def main() -> None:
         "of the 16-step fine-tune run (the forward's include validation); the _msvd rows: the "
         "same on the real-data run's first batch (MSVD ids and captions, npz regions through "
         "the native decode), launches those of its 16 steps and two validations, max_abs_err "
-        "that of the f = 8 checks; an f32-mode bound "
+        "that of the f = 8 checks; the _fast rows (the bf16 forward and the backward "
+        f"kernels): one -fast pre-training step's two launches at its most frequent bucket "
+        f"({fast_len} tokens, Lq = {fast_len - 1}), launches those of its 16-step run, "
+        "max_abs_err that of the bucket-shape checks; xattn_sim_fwd_query: one query call's "
+        "local sims (64 queries x 1000 videos, both directions), launches those of that "
+        "call; an f32-mode bound "
         f"counts {TF32_PASSES} TF32 passes at {PEAK_TF32_FLOPS:.3g} FLOP/s, a bf16 one the bf16 "
         "peak; "
         "max_abs_err of the training kernels is the worst of the training-shape checks (the "

@@ -23,6 +23,7 @@ from demovlp_tpu_torch.models import (DistilBertConfig, ObjectMCRelation, Object
                                       ObjectRelation)
 from demovlp_tpu_torch.train.checkpoint import find_latest_checkpoint
 from demovlp_tpu_torch.train.optim import AdamW
+from demovlp_tpu_torch.train.steps import parse_text_buckets
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -43,7 +44,9 @@ _ARCHS = {cls.__name__: cls for cls in (ObjectRelation, ObjectQARelation, Object
 def build_model(config: Dict[str, Any]) -> ObjectRelation:
     """The arch from its config section, with the nested
     object_params/text_params flattened as the JAX package does;
-    `num_label` and `head_dropout` go to the QA arch only."""
+    `num_label` and `head_dropout` go to the QA arch only. `mlm.weight` > 0
+    adds the MLM head (retrieval archs); the top-level `remat` recomputes
+    the region tower's blocks in the backward."""
     arch = config["arch"]
     if arch["type"] not in _ARCHS:
         raise NotImplementedError(f"arch {arch['type']!r} is not ported")
@@ -72,10 +75,16 @@ def build_model(config: Dict[str, Any]) -> ObjectRelation:
             kwargs[dst] = int(obj_p[src])
     if txt_p.get("config"):
         kwargs["text_config"] = DistilBertConfig(**txt_p["config"])
+    if config.get("remat"):
+        kwargs["remat"] = True
     if arch["type"] == "ObjectQARelation":
         for key, cast in (("num_label", int), ("head_dropout", float)):
             if key in obj_p:
                 kwargs[key] = cast(obj_p[key])
+    if float((config.get("mlm", {}) or {}).get("weight", 0.0)) > 0:
+        if arch["type"] == "ObjectQARelation":
+            raise ValueError("mlm.weight > 0 needs a retrieval arch; the QA arch has no MLM head")
+        kwargs["with_mlm"] = True
     return _ARCHS[arch["type"]](**kwargs)
 
 
@@ -151,10 +160,13 @@ def init_dataloaders(config: Dict[str, Any], val_split: str = "val",
     """Train loaders from the config (one section or a list), and val
     loaders with the reference's swap rules: split -> `val_split`, no
     shuffling, CC3M subsampled to 1%, LSMDC multiple choice on split 'val'
-    with batch 1. train=False builds no train loader."""
+    with batch 1. Train loaders group lengths (where `length_grouped` is
+    set) by the trainer's `text_buckets`. train=False builds no train
+    loader."""
     section = config["data_loader"]
     sections = section if isinstance(section, list) else [section]
-    train_loaders = [_loader(sec) for sec in sections] if train else []
+    buckets = parse_text_buckets(config.get("trainer", {}))
+    train_loaders = [_loader(sec, text_buckets=buckets) for sec in sections] if train else []
     val_loaders = []
     for sec in sections:
         override = {"split": val_split, "shuffle": False}
@@ -179,18 +191,6 @@ def local_score_args(config: Dict[str, Any]) -> Dict:
     }
 
 
-def refuse_unported_keys(config: Dict[str, Any]) -> None:
-    """Raise on the train settings the JAX trainers read and the port does
-    not: text trimmed to `trainer.text_buckets` (it changes the local and
-    QA losses) and the MLM objective (`mlm.weight` > 0). Absent, empty or 0
-    trains as before."""
-    if (config.get("trainer", {}) or {}).get("text_buckets"):
-        raise NotImplementedError("trainer.text_buckets (text trimmed to length buckets) "
-                                  "is not ported")
-    if float((config.get("mlm", {}) or {}).get("weight", 0.0)) > 0:
-        raise NotImplementedError("mlm.weight > 0 (the MLM objective) is not ported")
-
-
 def run_trainer(trainer_cls, description: str, val_split: str,
                 argv: Optional[Sequence[str]] = None, fence_steps: bool = False):
     """A train CLI: parse the command line, build everything from the
@@ -199,7 +199,6 @@ def run_trainer(trainer_cls, description: str, val_split: str,
     args = build_train_argparser(description).parse_args(argv)
     device = resolve_device(args.device)
     config = apply_overrides(read_config(args.config), args)
-    refuse_unported_keys(config)
     torch.manual_seed(args.seed)  # dropout
     cfg_trainer = config["trainer"]
     save_dir = make_run_dir(config)
@@ -214,7 +213,7 @@ def run_trainer(trainer_cls, description: str, val_split: str,
         max_samples_per_epoch=cfg_trainer.get("max_samples_per_epoch", 50000),
         transfer_dtype=torch.bfloat16 if bf16 else None, fence_steps=fence_steps,
         schedule=args.schedule, learning_rate1=args.learning_rate1,
-        lr_mode=cfg_trainer.get("lr_mode", "reference"),
+        lr_mode=cfg_trainer.get("lr_mode", "reference"), rng_seed=args.seed,
     )
     resume = args.resume or cfg_trainer.get("resume")
     if resume == "auto":

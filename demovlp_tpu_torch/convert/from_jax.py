@@ -7,6 +7,9 @@ LayerNorm {scale, bias} (under LayerNorm_0) -> {weight, bias}; embedding
 tables as they are; WeightNormDense {g, v, bias} -> {weight_g (a 0-d
 scalar), weight_v (out, in), bias}, with FCNet layer i at `main.{2 i}`. Key names are the reference torch schema, which the
 port's modules use, so `load_state_dict(strict=True)` needs no renaming.
+The MLM head, which the reference schema lacks, takes Hugging Face
+DistilBertForMaskedLM's names under `mlm_head.` (its flax LayerNorm holds
+{scale, bias} directly).
 
 The reference creates two families of parameters it never applies: the
 final `object_model.norm` LayerNorm and each block's `norm3` when there is
@@ -118,6 +121,12 @@ def from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     _object_tower(out, tree["object_model"], "object_model.")
     if "head" in tree:
         _qa_head(out, tree["head"], "head.")
+    if "mlm_head" in tree:
+        mlm = tree["mlm_head"]
+        _dense(out, mlm["vocab_transform"], "mlm_head.vocab_transform")
+        out["mlm_head.vocab_layer_norm.weight"] = _np(mlm["vocab_layer_norm"]["scale"])
+        out["mlm_head.vocab_layer_norm.bias"] = _np(mlm["vocab_layer_norm"]["bias"])
+        _dense(out, mlm["vocab_projector"], "mlm_head.vocab_projector")
     return {k: torch.tensor(v) for k, v in out.items()}
 
 

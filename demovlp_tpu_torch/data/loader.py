@@ -11,14 +11,22 @@ the current one. Where the dataset decodes its regions with the base
 class's reader and the native reader is on (data/native.py), one native
 call decodes a whole batch into its final buffers (`_fetch_batch_native`);
 otherwise each sample is fetched on its own and the samples are stacked.
-Length grouping and multi-process sharding are not ported.
+
+Length grouping (`length_grouped`, train loaders only: shuffled and
+dropping the last batch; inert elsewhere) gives the JAX loader's batches
+index for index: the epoch's permutation is partitioned stably by
+caption-length class (the smallest of the trainer's `text_buckets`, else
+of `DEFAULT_TEXT_BUCKETS`, that holds the word count + 2 for [CLS] and
+[SEP]), and the batch order is then shuffled with
+`SeedSequence([seed, epoch, 1])`. The JAX loader's "sort" mode (kept there
+for measurement only) and multi-process sharding are not ported.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -28,6 +36,11 @@ from demovlp_tpu_torch.data.regions import REGION_DIM
 from demovlp_tpu_torch.data.transforms import init_transform_dict
 
 _PREFETCH = 2  # batches assembled ahead of the consumer
+# [CLS] + [SEP]: the margin between the word-count length proxy and the
+# tokenized length that the bucket edges are compared against
+_TOKENIZER_SPECIALS = 2
+# the JAX loader's class edges, used where the trainer sets no text_buckets
+DEFAULT_TEXT_BUCKETS = (32, 48, 64)
 
 
 def _task_fields(batch: Dict[str, Any], items: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -52,14 +65,21 @@ def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 class RegionDataLoader:
     """Iterates the dataset in batches of `batch_size`: shuffled per epoch
-    and without the partial last batch for training, in order and with it
-    for eval."""
+    and without the partial last batch for training (length-grouped where
+    asked), in order and with it for eval."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, drop_last: bool = False, seed: int = 0,
-                 process_index: int = 0, process_count: int = 1):
+                 process_index: int = 0, process_count: int = 1,
+                 length_grouped: bool = False,
+                 text_buckets: Optional[Sequence[int]] = None):
         if (process_index, process_count) != (0, 1):
             raise NotImplementedError("multi-process loaders are not ported")
+        if length_grouped not in (False, True):
+            raise NotImplementedError(f"length_grouped={length_grouped!r} is not ported")
+        self.length_grouped = bool(length_grouped and shuffle and drop_last)
+        # the class edges: those the trainer trims to, so the two agree
+        self.text_buckets = tuple(sorted(text_buckets or DEFAULT_TEXT_BUCKETS))
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -126,6 +146,15 @@ class RegionDataLoader:
                              "text": [d["text"] for d in items],
                              "meta": [d["meta"] for d in items]}, items)
 
+    def _length_group(self, order: np.ndarray) -> np.ndarray:
+        """The permutation partitioned stably by length class, the epoch's
+        random order kept within each class."""
+        lens = np.asarray(self.dataset.text_lengths())
+        buckets = np.asarray(self.text_buckets)
+        # class len(buckets): fits no bucket (pads to the full length)
+        cls = np.searchsorted(buckets, lens[order] + _TOKENIZER_SPECIALS, side="left")
+        return np.concatenate([order[cls == c] for c in range(len(buckets) + 1)])
+
     def batch_indices(self) -> List[np.ndarray]:
         """This epoch's sample indices, batch by batch."""
         n = len(self.dataset)
@@ -134,8 +163,15 @@ class RegionDataLoader:
             order = rng.permutation(n)
         else:
             order = np.arange(n)
+        if self.length_grouped:
+            order = self._length_group(order)
         nb = len(self)
-        return [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)]
+        batches = [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)]
+        if self.length_grouped and len(batches) > 1:
+            # epoch position decorrelated from caption length
+            brng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch, 1]))
+            batches = [batches[j] for j in brng.permutation(len(batches))]
+        return batches
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         batches = self.batch_indices()
@@ -198,9 +234,8 @@ class MultiDistTextObjectVideoDataLoader(RegionDataLoader):
                  cut: Optional[str] = None, subsample: float = 1,
                  sliding_window_stride: int = -1, reader: str = "cv2", batch_size: int = 1,
                  num_workers: int = 1, shuffle: bool = True, drop_last: Optional[bool] = None,
-                 seed: int = 0, length_grouped: bool = False):
-        if length_grouped:
-            raise NotImplementedError("length-grouped batching is not ported")
+                 seed: int = 0, length_grouped: bool = False,
+                 text_buckets: Optional[Sequence[int]] = None):
         dataset = dataset_object_loader(
             dataset_name, text_params=text_params, object_params=object_params,
             data_dir=data_dir, object_dir=object_dir, metadata_dir=metadata_dir, split=split,
@@ -212,4 +247,5 @@ class MultiDistTextObjectVideoDataLoader(RegionDataLoader):
         if drop_last is None:
             drop_last = split == "train"
         super().__init__(dataset, batch_size=batch_size, shuffle=shuffle,
-                         num_workers=num_workers, drop_last=drop_last, seed=seed)
+                         num_workers=num_workers, drop_last=drop_last, seed=seed,
+                         length_grouped=length_grouped, text_buckets=text_buckets)

@@ -9,7 +9,12 @@ object mask's CLS column trimmed. QA max-pools the projected text over ALL
 positions, padded ones included (reference model.py:286), and runs the BUTD
 head over the non-CLS region embeddings with the BINARY region mask
 flattened to (B, F*K). MC is the retrieval architecture, scored per option.
-The MLM head waits for a later slice.
+
+With `with_mlm` the retrieval model carries the MLM head on DistilBERT's
+last hidden state (Hugging Face DistilBertForMaskedLM's names:
+`mlm_head.vocab_transform`, `vocab_layer_norm`, `vocab_projector`); only a
+forward that asks for it (`mlm=True`, the MLM train step) runs it, so eval
+and serving never pay for the vocabulary projection.
 """
 from __future__ import annotations
 
@@ -19,9 +24,25 @@ import torch
 import torch.nn as nn
 
 from demovlp_tpu_torch.models.distilbert import DistilBertConfig, DistilBertModel
-from demovlp_tpu_torch.models.layers import Dense, init_weights, trunc_normal_
+from demovlp_tpu_torch.models.layers import Dense, LayerNormFp32, init_weights, trunc_normal_
 from demovlp_tpu_torch.models.object_transformer import ObjectTransformer
 from demovlp_tpu_torch.models.qa_head import BUTDQAHead
+
+
+class MLMHead(nn.Module):
+    """Masked-LM head: Linear(dim, dim) -> exact GELU -> LayerNorm (f32
+    statistics, the result in the compute dtype) -> Linear(dim, vocab)."""
+
+    def __init__(self, vocab_size: int, dim: int, layer_norm_eps: float = 1e-12,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.vocab_transform = Dense(dim, dim, compute_dtype=compute_dtype)
+        self.vocab_layer_norm = LayerNormFp32(dim, eps=layer_norm_eps)
+        self.vocab_projector = Dense(dim, vocab_size, compute_dtype=compute_dtype)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        x = torch.nn.functional.gelu(self.vocab_transform(hidden), approximate="none")
+        return self.vocab_projector(self.vocab_layer_norm(x))
 
 
 class ObjectRelation(nn.Module):
@@ -30,7 +51,8 @@ class ObjectRelation(nn.Module):
                  text_config: DistilBertConfig = DistilBertConfig(),
                  object_embed_dim: int = 768, object_depth: int = 12,
                  object_heads: int = 12, attn_impl: str = "dense",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, with_mlm: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.text_model = DistilBertModel(text_config, compute_dtype)
         self.txt_proj = nn.Sequential(
@@ -42,8 +64,13 @@ class ObjectRelation(nn.Module):
             output_dim=projection_dim, time_module=time_module or None,
             embed_dim=object_embed_dim, depth=object_depth,
             num_heads=object_heads, attn_impl=attn_impl,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, remat=remat,
         )
+        # registered last, so the seeded init of the other parameters is
+        # the same with and without the head
+        self.mlm_head = (MLMHead(text_config.vocab_size, text_config.dim,
+                                 text_config.layer_norm_eps, compute_dtype)
+                         if with_mlm else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded random init (see layers.init_weights)."""
@@ -61,18 +88,26 @@ class ObjectRelation(nn.Module):
         o, add_mask = self.object_model(object_feat, object_mask)
         return o[:, 0], o[:, 1:], add_mask
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                mlm: bool = False) -> Dict[str, torch.Tensor]:
         """batch: input_ids (B,L), attention_mask (B,L), object (B,F,K,2054),
-        object_mask (B,F,K) -> the five-tensor embedding dict."""
-        g_t, l_t = self.compute_text(batch["input_ids"], batch["attention_mask"])
+        object_mask (B,F,K) -> the five-tensor embedding dict, plus
+        `mlm_logits` (B, L, vocab) when `mlm` (the model needs the head)."""
+        hidden = self.text_model(batch["input_ids"], batch["attention_mask"])
+        t = self.txt_proj(hidden)
         g_o, l_o, add_mask = self.compute_object(batch["object"], batch["object_mask"])
-        return dict(
-            global_text_embeddings=g_t,
-            local_text_embeddings=l_t,
+        out = dict(
+            global_text_embeddings=t[:, 0],
+            local_text_embeddings=t[:, 1:],
             global_object_embeddings=g_o,
             local_object_embeddings=l_o,
             object_mask=add_mask[:, 1:],  # additive, CLS trimmed
         )
+        if mlm:
+            if self.mlm_head is None:
+                raise ValueError("mlm=True needs a model built with_mlm")
+            out["mlm_logits"] = self.mlm_head(hidden)
+        return out
 
 
 class ObjectQARelation(ObjectRelation):

@@ -14,6 +14,11 @@ Attention stays a plain matmul with an f32 softmax, not SDPA: these
 numerics are what the tests pin. `attn_impl` "dense" is masked full
 attention with the `_block_bias` group mask; "xla" is the grouped form.
 At one group (space at F=1, time at K=1) both take the plain path.
+
+`remat` recomputes each block in the backward instead of keeping its
+activations (torch.utils.checkpoint, non-reentrant, the RNG state kept so
+any dropout recomputes identically): the same values and gradients, less
+memory, one more forward of the blocks.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from demovlp_tpu_torch.models.layers import Dense, LayerNormFp32, Mlp
 from demovlp_tpu_torch.ops.masking import additive_mask
@@ -151,9 +157,10 @@ class ObjectTransformer(nn.Module):
                  output_dim: int = 256, time_module: Optional[str] = None,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  attn_impl: str = "dense",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat
         d = embed_dim
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         # row 0 is the CLS position embed; rows 1: are kept for the
@@ -187,5 +194,9 @@ class ObjectTransformer(nn.Module):
         pos = torch.cat([self.custom_pos_embed[:, :1], tile_temporal], dim=1)
         h = h + pos.to(cd)
         for blk in self.blocks:
-            h = blk(h, add_mask, f, k)
+            if self.remat and torch.is_grad_enabled():
+                h = checkpoint(blk, h, add_mask, f, k, use_reentrant=False,
+                               preserve_rng_state=True)
+            else:
+                h = blk(h, add_mask, f, k)
         return self.proj(h), add_mask

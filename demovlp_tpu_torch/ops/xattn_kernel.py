@@ -55,11 +55,19 @@ _BLOCK = 64  # items a side in one block pair of the plain versions
 #: xattn_sim_bwd_dq_reduce_kernel, or xattn_sim_bwd_dc_kernel and
 #: xattn_sim_bwd_dc_reduce_kernel.
 LAUNCHES = {KERNEL: 0, KERNEL_BF16: 0, KERNEL_DQ: 0, KERNEL_DC: 0}
+#: the same counts split by shape: (name, Ls, Lq) -> launches
+SHAPE_LAUNCHES: dict = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def _count(name: str, ls: int, lq: int) -> None:
+    LAUNCHES[name] += 1
+    SHAPE_LAUNCHES[(name, ls, lq)] = SHAPE_LAUNCHES.get((name, ls, lq), 0) + 1
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -127,11 +135,10 @@ def direction_sim_plain(context, query, ctx_mask, lam: float = 20.0,
     return out
 
 
-def _backward_block(ctx, qry, cmask, g, lam: float, focal_equal: bool, bf16: bool):
-    """One block pair's analytic backward (pallas_xattn.py `_fa_bwd_tile`):
-    (dq_direct (bq, lq, d), dqn (bq, lq, d), dcn (bc, ls, d)), each summed
-    over the block's other side. The qn and cn backwards are applied once
-    to the totals (both are linear in dqn / dcn)."""
+def backward_da1(ctx, qry, cmask, g, lam: float, focal_equal: bool, bf16: bool):
+    """One block pair's backward as far as da1 (bc, bq, lq, ls), the
+    cotangent of the leaky-ReLU's output: (da1, the forward's intermediates,
+    dw, dq_direct). Any float dtype."""
     lq = qry.shape[1]
     _, f = _forward_block(ctx, qry, cmask, lam, focal_equal, bf16)
     op, q_norm, w, num, wn, den_raw = (f[k] for k in ("op", "q_norm", "w", "num", "wn",
@@ -161,6 +168,16 @@ def _backward_block(ctx, qry, cmask, g, lam: float, focal_equal: bool, bf16: boo
     sqrt_sq = torch.where(sq_pos, r - _EPS, 1.0)
     ratio = torch.where(sq_pos, t / r / sqrt_sq, 0.0)
     da1 = da3 / r - ratio * f["a2"]
+    return da1, f, dw, dq_direct
+
+
+def _backward_block(ctx, qry, cmask, g, lam: float, focal_equal: bool, bf16: bool):
+    """One block pair's analytic backward (pallas_xattn.py `_fa_bwd_tile`):
+    (dq_direct (bq, lq, d), dqn (bq, lq, d), dcn (bc, ls, d)), each summed
+    over the block's other side. The qn and cn backwards are applied once
+    to the totals (both are linear in dqn / dcn)."""
+    da1, f, dw, dq_direct = backward_da1(ctx, qry, cmask, g, lam, focal_equal, bf16)
+    op, ph = f["op"], f["ph"]
     da0 = torch.where(f["a0"] >= 0, da1, 0.1 * da1)
     dqn = torch.einsum("cqls,csd->qld", op(da0), op(f["cn"]))
     dcn = (torch.einsum("cqls,cqld->csd", op(ph), op(dw))
@@ -280,7 +297,7 @@ def _launch(context, query, ctx_mask, lam: float, focal_equal: bool, mxu_bf16: b
         # there usually means the (Lq x Ls) score tile does not fit a block
         raise RuntimeError(f"xattn_sim_fwd launch failed (Lq={lq}, Ls={ls}): "
                            f"cudaError_t {err}")
-    LAUNCHES[KERNEL_BF16 if mxu_bf16 else KERNEL] += 1
+    _count(KERNEL_BF16 if mxu_bf16 else KERNEL, ls, lq)
     return out
 
 
@@ -372,7 +389,7 @@ def _launch_bwd(name: str, context, query, ctx_mask, g, lam: float, focal_equal:
         # column vectors do not fit one block's shared memory
         raise RuntimeError(f"{name} launch failed (Lq={lq}, Ls={ls}, D={d}, S={splits}): "
                            f"cudaError_t {err}")
-    LAUNCHES[name] += 1
+    _count(name, ls, lq)
     return out
 
 

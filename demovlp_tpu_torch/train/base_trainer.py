@@ -25,7 +25,7 @@ from demovlp_tpu_torch.train.optim import step_decay_lr
 class BaseTrainer:
     def __init__(self, model, loss, metrics: List, optimizer, config: Dict[str, Any],
                  save_dir, schedule=(30, 40), learning_rate1: float = 2e-4,
-                 lr_mode: str = "reference"):
+                 lr_mode: str = "reference", rng_seed: int = 0):
         self.model = model
         self.loss = loss
         self.metrics = metrics
@@ -34,6 +34,7 @@ class BaseTrainer:
         self.schedule = list(schedule)
         self.learning_rate1 = learning_rate1
         self.lr_mode = lr_mode
+        self.rng_seed = rng_seed  # the run's --seed (host-side draws, e.g. MLM masks)
         self.logger = logging.getLogger("trainer")
 
         cfg_trainer = config["trainer"]

@@ -1,7 +1,10 @@
 """Video-QA trainer (counterpart of demovlp_tpu/train/qa.py): cross-entropy
-on the classifier's logits with a running accuracy; eval takes the argmax
-of every val sample's logits and scores them with `evaluate_qa`'s
-per-answer-type breakdown. One process: no gathers across hosts.
+on the classifier's logits with a running accuracy; train text is trimmed
+to `trainer.text_buckets` when set (QA max-pools over every position, pads
+included, so trimming moves the loss as it does in the JAX package). Eval
+takes the argmax of every val sample's logits (serve.predict_qa) and scores
+them with `evaluate_qa`'s per-answer-type breakdown. One process: no
+gathers across hosts.
 """
 from __future__ import annotations
 
@@ -11,10 +14,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from demovlp_tpu_torch.serve import predict_qa
 from demovlp_tpu_torch.train.async_metrics import DeferredMetrics
 from demovlp_tpu_torch.train.base_trainer import BaseTrainer
 from demovlp_tpu_torch.train.steps import (batch_to_device, make_qa_eval_step,
-                                           make_qa_train_step, pad_batch, prepare_batch)
+                                           make_qa_train_step, parse_text_buckets,
+                                           prepare_batch)
 
 
 class QATrainer(BaseTrainer):
@@ -39,6 +44,8 @@ class QATrainer(BaseTrainer):
         self.fence_steps = fence_steps
         self.step_times: List[float] = []
         self.step_losses: List[float] = []
+        self.step_text_lens: List[int] = []
+        self.text_buckets = parse_text_buckets(config["trainer"])
         self.valid_label2ans = [dl.dataset.label2ans for dl in self.valid_data_loader]
         self.valid_qid2data = [dl.dataset.qid2data for dl in self.valid_data_loader]
         self._train_step = make_qa_train_step(model, loss, optimizer)
@@ -67,8 +74,9 @@ class QATrainer(BaseTrainer):
             if (batch_idx + 1) * self.total_batch_sum > self.max_samples_per_epoch:
                 break
             for dl_idx, data in enumerate(data_li):
-                batch = batch_to_device(prepare_batch(data, self.tokenizer), self.device,
-                                        self.transfer_dtype)
+                arrays = prepare_batch(data, self.tokenizer, text_buckets=self.text_buckets)
+                self.step_text_lens.append(int(arrays["input_ids"].shape[1]))
+                batch = batch_to_device(arrays, self.device, self.transfer_dtype)
                 t0 = time.perf_counter()
                 m = self._train_step(batch, lr)
                 if self.fence_steps:
@@ -87,28 +95,14 @@ class QATrainer(BaseTrainer):
             log.update(self._valid_epoch(epoch))
         return log
 
-    def predict(self, dl):
-        """(question ids, argmax labels) of every sample of an eval loader."""
-        preds, qids = [], []
-        for data in dl:
-            arrays = prepare_batch(data, self.tokenizer)
-            arrays.pop("label", None)
-            arrays, n_valid = pad_batch(arrays, dl.batch_size)
-            logits = self._eval_step(batch_to_device(arrays, self.device, self.transfer_dtype))
-            preds.append(torch.argmax(logits[:n_valid], dim=-1).cpu().numpy())
-            qids.append(np.asarray(data["question_id"]))
-        if not preds:
-            return np.zeros((0,), np.int64), np.zeros((0,), np.int64)
-        return np.concatenate(qids), np.concatenate(preds)
-
     def _valid_epoch(self, epoch: int) -> Dict[str, Any]:
         nested: Dict[int, Dict[str, Any]] = {}
         res: Dict[str, Any] = {}
         for dl_idx, dl in enumerate(self.valid_data_loader):
             qid2data = self.valid_qid2data[dl_idx]
-            qids, preds = self.predict(dl)
-            results = [dict(question_id=int(q), answer=int(p), data=qid2data[int(q)])
-                       for q, p in zip(qids, preds)]
+            results = [dict(r, data=qid2data[r["question_id"]]) for r in predict_qa(
+                self._eval_step, dl, self.tokenizer, self.device,
+                transfer_dtype=self.transfer_dtype)]
             print(f"Get {len(results)} results.", flush=True)
             dl_metrics: Dict[str, Any] = {}
             for metric in self.metrics:

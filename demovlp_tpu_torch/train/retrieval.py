@@ -1,10 +1,13 @@
 """Retrieval trainer (counterpart of demovlp_tpu/train/retrieval.py).
 
 Train: zip over the train loaders, one batch from each per step, capped by
-`max_samples_per_epoch`; tokenize -> train step on the device -> the
-epoch's learning rate from the step-decay schedule. Losses are read one
-step late (train/async_metrics.py), so the host prepares the next batch
-while the card runs the current step.
+`max_samples_per_epoch`; tokenize (trimmed to `trainer.text_buckets` when
+set; validation keeps the full length) -> with `mlm.weight` > 0 the text
+masked 80/10/10 on the host by `default_rng(seed + 1)`, as the JAX trainer
+draws it -> train step on the device -> the epoch's learning rate from the
+step-decay schedule. Losses are read one step late
+(train/async_metrics.py), so the host prepares the next batch while the
+card runs the current step.
 
 Eval: embed every val batch, assemble the embeddings on the host, then the
 global cosine sims plus the local sims through the f32 forward kernel
@@ -20,12 +23,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from demovlp_tpu_torch.data.mlm import mask_batch_text_tokens
 from demovlp_tpu_torch.serve import EMBED_KEYS, OUT_KEYS, combined_sims
 from demovlp_tpu_torch.train.async_metrics import DeferredMetrics
 from demovlp_tpu_torch.train.base_trainer import BaseTrainer
 from demovlp_tpu_torch.train.steps import (batch_to_device, make_retrieval_eval_step,
                                            make_retrieval_train_step, pad_batch,
-                                           prepare_batch)
+                                           parse_text_buckets, prepare_batch)
 
 def verbose(epoch, metrics, mode, name="TEST"):
     msg = (f"[{mode}]{name:s} epoch {epoch}, R@1: {metrics['R1']:.1f}, "
@@ -38,7 +42,8 @@ def verbose(epoch, metrics, mode, name="TEST"):
 class RetrievalTrainer(BaseTrainer):
     """`fence_steps` synchronises the card after every train step and keeps
     each step's wall time in `step_times` (for measurement; it removes the
-    host/card overlap). `step_losses` keeps every step's total loss."""
+    host/card overlap). `step_losses` keeps every step's total loss,
+    `step_text_lens` every train batch's text length after bucketing."""
 
     def __init__(self, model, loss, metrics, optimizer, config, save_dir, device,
                  data_loader: List, valid_data_loader: Optional[List] = None,
@@ -59,7 +64,16 @@ class RetrievalTrainer(BaseTrainer):
         self.fence_steps = fence_steps
         self.step_times: List[float] = []
         self.step_losses: List[float] = []
-        self._train_step = make_retrieval_train_step(model, loss, optimizer)
+        self.step_text_lens: List[int] = []
+        self.text_buckets = parse_text_buckets(config["trainer"])
+        mlm = config.get("mlm", {}) or {}
+        self.mlm_weight = float(mlm.get("weight", 0.0))
+        self.mlm_prob = float(mlm.get("mask_prob", 0.15))
+        self.mlm_mask_token = int(mlm.get("mask_token_id", 103))
+        self.mlm_vocab = int(mlm.get("vocab_size", model.text_model.config.vocab_size))
+        self._mlm_rng = np.random.default_rng(self.rng_seed + 1)
+        self._train_step = make_retrieval_train_step(model, loss, optimizer,
+                                                     mlm_weight=self.mlm_weight)
         self._eval_step = make_retrieval_eval_step(model, loss)
 
     def _train_epoch(self, epoch: int) -> Dict[str, Any]:
@@ -82,7 +96,7 @@ class RetrievalTrainer(BaseTrainer):
             if (batch_idx + 1) * self.total_batch_sum > self.max_samples_per_epoch:
                 break
             for dl_idx, data in enumerate(data_li):
-                batch = batch_to_device(prepare_batch(data, self.tokenizer), self.device,
+                batch = batch_to_device(self.train_arrays(data), self.device,
                                         self.transfer_dtype)
                 t0 = time.perf_counter()
                 m = self._train_step(batch, lr)
@@ -100,6 +114,20 @@ class RetrievalTrainer(BaseTrainer):
         if self.do_validation:
             log.update(self._valid_epoch(epoch))
         return log
+
+    def train_arrays(self, data) -> Dict[str, np.ndarray]:
+        """A train batch's arrays: tokenized, trimmed to its bucket and,
+        with the MLM objective, masked (drawing from the trainer's MLM
+        generator)."""
+        arrays = prepare_batch(data, self.tokenizer, text_buckets=self.text_buckets)
+        arrays.pop("label", None)
+        self.step_text_lens.append(int(arrays["input_ids"].shape[1]))
+        if self.mlm_weight:
+            arrays["input_ids"], arrays["mlm_labels"] = mask_batch_text_tokens(
+                arrays["input_ids"], arrays["attention_mask"],
+                mask_token_id=self.mlm_mask_token, vocab_size=self.mlm_vocab,
+                rng=self._mlm_rng, mlm_probability=self.mlm_prob)
+        return arrays
 
     def embed(self, dl):
         """Every sample of an eval loader once: (host embedding dict, mean

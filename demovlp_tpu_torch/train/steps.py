@@ -1,12 +1,15 @@
 """Batch preparation and the train and eval steps (counterpart of
-demovlp_tpu/train/steps.py: `prepare_batch`, `pad_batch`,
-`_retrieval_losses`, `make_retrieval_train_step`,
-`make_retrieval_eval_step`, `make_qa_train_step`, `make_qa_eval_step`,
-`make_mc_eval_step_batched`, `make_mc_eval_step`).
+demovlp_tpu/train/steps.py: `prepare_batch`, `parse_text_buckets`,
+`pad_batch`, `_retrieval_losses`, `mlm_loss_fn`,
+`make_retrieval_train_step`, `make_retrieval_eval_step`,
+`make_qa_train_step`, `make_qa_eval_step`, `make_mc_eval_step_batched`,
+`make_mc_eval_step`).
 
-Text buckets are off: every batch is tokenized to the fixed length 100, as
-the reference does. The MLM objective and `cast_tower_weights` (numerically
-a no-op) are not ported.
+Every batch is tokenized to the fixed length 100, as the reference does;
+with `text_buckets` (train batches only) it is then trimmed to the
+smallest bucket that holds its longest text. One process, so the bucket
+needs no agreement across processes. `cast_tower_weights` (numerically a
+no-op) is not ported.
 """
 from __future__ import annotations
 
@@ -20,14 +23,29 @@ from demovlp_tpu_torch.ops.masking import additive_mask
 from demovlp_tpu_torch.ops.similarity import sim_matrix
 
 
-def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100):
+def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100,
+                  text_buckets=None):
     """Tokenize the text and assemble the model's numpy array batch. A
     multiple-choice item's option texts are flattened in order; a batch's
-    labels are carried."""
+    labels are carried.
+
+    text_buckets: sorted lengths (e.g. [32, 48, 64]). The (B, max_text_len)
+    encoding is trimmed to the smallest bucket b with longest <= b < L, and
+    kept at L where none fits, so no token is ever trimmed. Exact for what
+    reads only unmasked text; the local loss (its mean over every query
+    position) and QA's max-pool read the pads too, as in the JAX package
+    (PARITY.md #14)."""
     text = batch["text"]
     if text and isinstance(text[0], (list, tuple)):
         text = [t for opts in text for t in opts]
     enc = tokenizer(text, max_length=max_text_len)
+    if text_buckets:
+        longest = int(enc["attention_mask"].sum(axis=1).max())
+        length = enc["input_ids"].shape[1]
+        target = min((b for b in text_buckets if longest <= b < length), default=length)
+        if target < length:
+            enc = {"input_ids": enc["input_ids"][:, :target],
+                   "attention_mask": enc["attention_mask"][:, :target]}
     arrays = {
         "input_ids": enc["input_ids"],
         "attention_mask": enc["attention_mask"],
@@ -37,6 +55,12 @@ def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100):
     if "label" in batch:
         arrays["label"] = batch["label"]
     return arrays
+
+
+def parse_text_buckets(trainer_cfg: Dict[str, Any]):
+    """`trainer.text_buckets` -> a sorted list of ints, or None where it is
+    absent or empty."""
+    return sorted(int(b) for b in (trainer_cfg.get("text_buckets") or [])) or None
 
 
 def pad_batch(arrays: Dict[str, np.ndarray], target: int) -> Tuple[Dict, int]:
@@ -67,6 +91,8 @@ def batch_to_device(arrays: Dict[str, np.ndarray], device: torch.device,
         out["valid"] = to_device(arrays["valid"], device)
     if "label" in arrays:
         out["label"] = to_device(arrays["label"].astype(np.int64), device)
+    if "mlm_labels" in arrays:
+        out["mlm_labels"] = to_device(arrays["mlm_labels"].astype(np.int64), device)
     return out
 
 
@@ -88,20 +114,41 @@ def retrieval_losses(loss_obj, outputs, batch, valid=None):
     )
 
 
+def mlm_loss_fn(logits, labels, ignore_index: int = -100):
+    """Masked-LM cross-entropy (f32) averaged over the positions whose label
+    is not `ignore_index`; 0 where there are none."""
+    logits = logits.float()
+    valid = (labels != ignore_index).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
 def make_retrieval_train_step(model: torch.nn.Module, loss_obj, optimizer,
-                              deterministic: bool = False) -> Callable:
+                              deterministic: bool = False,
+                              mlm_weight: float = 0.0) -> Callable:
     """step(batch, lr) -> metrics (device scalars): forward (dropout on
     unless `deterministic`), losses, backward, one AdamW update at `lr`.
-    The gradients stay in `p.grad` until the next step."""
+    With `mlm_weight` the model's MLM head runs on the masked text and
+    mlm_weight * mlm_loss_fn(logits, batch["mlm_labels"]) joins the total;
+    `mlm_loss` is 0 otherwise. The gradients stay in `p.grad` until the
+    next step."""
 
     def step(batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
         model.train(not deterministic)
         optimizer.set_lr(lr)
         optimizer.zero_grad(set_to_none=True)
-        total, g, l = retrieval_losses(loss_obj, model(batch), batch)
+        out = model(batch, mlm=True) if mlm_weight else model(batch)
+        total, g, l = retrieval_losses(loss_obj, out, batch)
+        if mlm_weight:
+            mlm = mlm_loss_fn(out["mlm_logits"], batch["mlm_labels"])
+            total = total + mlm_weight * mlm
+        else:
+            mlm = torch.zeros((), dtype=torch.float32, device=total.device)
         total.backward()
         optimizer.step()
-        return {"loss": total.detach(), "global_loss": g.detach(), "local_loss": l.detach()}
+        return {"loss": total.detach(), "global_loss": g.detach(), "local_loss": l.detach(),
+                "mlm_loss": mlm.detach()}
 
     return step
 
