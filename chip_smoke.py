@@ -52,7 +52,26 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 (f=1 x k=30, batch 128, bf16 towers and local loss, one
                 epoch = 16 steps, then validation over the val split), the
                 launch counts reset just before and read just after;
-  8b. pretrain-fast — the train CLI at full width on
+  8a. record — the train run's record under <save_dir>/log/<name>/<stamp>/:
+                scalars.jsonl holds train/loss_train_0 at steps 1-16 equal to
+                the trainer's losses and loss_val_0 after validation,
+                info.log the epoch log, and web/<name>/<stamp>/ exists; then
+                the same 16 steps (epoch 1's batches) with the writer and
+                without it, fenced: the medians with their spread, and the
+                synchronising calls torch's sync debug mode reports in each
+                loop, which must be equal;
+  8b. profile — (run after the timings, 14) utils/profiling.trace over 6
+                unfenced steps of that trainer,
+                twice: with its loader drawing batches during the window,
+                then with the batches drawn before it; the loop's
+                pieces in annotate spans
+                (data, prepare, to_device, step, consume): each span's mean
+                host ms, the 10 host ops with the most self CPU time, the 10
+                device kernels with the most time, the device's busy share
+                over the window and its 5 longest idle gaps with the span
+                the host was in; the traces, gzipped, under
+                chiprun_out/chip_smoke/profile{,-loader-idle}/;
+  8c. pretrain-fast — the train CLI at full width on
                 configs/bench/ab_local_bf16_fast.json (the -fast path: long-tail
                 captions, length-grouped batches, text trimmed to 32 / 48 / 64;
                 16 steps, then validation), launch counts reset just before and
@@ -61,10 +80,10 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 (FAST_EPOCH1_LENGTHS, from the CPU), at least two lengths, 16
                 finite losses; each step's length and fenced ms, the median a
                 bucket, peak memory, [train]'s median beside it;
-  8c. mlm     — train-ref with mlm.weight 0.5 and text buckets (masks drawn
+  8d. mlm     — train-ref with mlm.weight 0.5 and text buckets (masks drawn
                 on the host as the trainer draws them), then 4 full-width
                 steps of the -fast config with mlm.weight 0.5;
-  8d. remat   — one full-width step of ab_local_bf16.json with and without
+  8e. remat   — one full-width step of ab_local_bf16.json with and without
                 remat from the same weights, batch and dropout seed: the
                 losses and the region tower's gradients agree, the peak
                 memory of each printed;
@@ -102,6 +121,16 @@ Phases, each fatal on failure (exit code != 0, and no result line):
  13. mc       — train_mc at full width on configs/bench/mc_synthetic_f8.json
                 (256 items, 5 options, 8 items a call); card vs CPU on the
                 smoke config: the option scores;
+ 13b. extractor — PatchRegionExtractor at its default widths (384 x 6 layers x
+                6 heads, patch 16) on seeded 224 x 224 frames, f = 8, k = 30,
+                64 videos in batches of 16 in the serve config's bf16; card vs
+                CPU on one batch in f32 with the same weights (object within
+                1e-4 of its largest entry and conf within 1e-6, regions
+                matched by patch; a patch at another slot only across a
+                near-tie within 1e-6); the regions embedded by the serve
+                config's model and scored at 64 x 64 by combined_sims (the
+                f32 forward, launch counts reset just before and read just
+                after); frames/s and the sims time;
  14. timing   — each kernel and its plain version on the main paths' own
                 inputs, beside the card's bound for the same work (f32 mode:
                 3 TF32 passes at the TF32 peak, the f32 FFMA bound printed
@@ -119,7 +148,13 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 scaled_dot_product_attention; the profiler's names of the
                 kernels that ran; and one step each of the train and
                 fine-tune runs split into towers, loss, backward and
-                optimizer, and by kernel with the profiler.
+                optimizer, and by kernel with the profiler;
+ 15. mfu      — the model FLOPs of a step (utils/flops.py's analytic model at
+                each run's shapes and widths) and the MFU of the fenced
+                medians of train, pretrain-fast (a bucket at a time) and the
+                f = 8 fine-tune against the card's dense bf16 peak; beside
+                them FlopCounterMode's count of one pre-training step (aten
+                ops only) against the model's towers and global sims.
 Phase 3 also holds the backward kernels at the f = 8 shapes (32 x 32 items,
 (Ls, Lq) = (240, 99) and (99, 240)), and at 40 x 37 items where the partner
 loop is split raggedly over S blocks an item (resident and workspace
@@ -305,6 +340,32 @@ RD_FRAMES = (8, 12)
 RD_REGIONS = (10, 36)
 RD_SEED = 8
 RD_LOADER_BATCHES = 16
+# [record]: the run record's steps, and the runs with and without the writer
+RECORD_STEPS = 16
+# [profile]: unfenced steps of the pre-training trainer inside the trace,
+# and the host spans its loop opens around each step's pieces
+PROFILE_STEPS = 6
+PROFILE_SPANS = ("data", "prepare", "to_device", "step", "consume")
+# the device's own events in the trace (kernels, copies, fills)
+TRACE_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# [extractor]: PatchRegionExtractor at its default widths (384 x 6 layers x
+# 6 heads, patch 16) on seeded 224 x 224 frames, f and k from the serve
+# config; 64 videos in batches of 16. Card vs CPU on one batch in f32 with
+# the same weights: `object` within 1e-4 of its largest |entry| (f32
+# products in another order through 6 blocks; no TF32, device.py), `conf`
+# within 1e-6 (softmax masses near 1/196). At random init the saliency is
+# near-uniform: a frame's 196 confidences span about 2% of 1/196, so
+# neighbours in the sorted order lie about 5e-7 apart, and the two
+# devices' f32 differences (read: 1.4e-9 at most) swap some of them. So
+# regions are matched by patch: each patch both devices selected within
+# the object tolerance, and each patch selected at another slot or on one
+# side only a near-tie, its confidences within EX_TOL_CONF of the other
+# side's at that slot (or of its last kept one)
+EX_VIDEOS = 64
+EX_BATCH = 16
+EX_SEED = 10
+EX_TOL_OBJECT = 1e-4
+EX_TOL_CONF = 1e-6
 
 
 def log(msg: str) -> None:
@@ -2011,6 +2072,394 @@ def phase_realdata(tmp: Path, device, card: str, pretrain, ft_trainer):
     return trainer, launches, inputs
 
 
+def _read_scalars(log_dir: Path) -> list:
+    return [json.loads(line) for line in (log_dir / "scalars.jsonl").read_text().splitlines()]
+
+
+def _epoch_with_writer(trainer, writer, epoch: int):
+    """One more epoch of `trainer`'s train loop (16 steps, fenced, no
+    validation) with `writer` as its scalar writer (None: none); (fenced
+    step seconds, the synchronising calls torch's sync debug mode reported
+    in the loop)."""
+    import warnings
+
+    trainer.writer, trainer.do_validation = writer, False
+    trainer.step_times, trainer.step_losses, trainer.step_text_lens = [], [], []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer._train_epoch(epoch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return trainer.step_times, syncs
+
+
+def phase_record(tmp: Path, trainer) -> None:
+    """The [train] run's record under <save_dir>/log/<name>/<stamp>/: one
+    train/loss_train_0 a step at steps 1..16 equal to the trainer's own
+    losses, loss_val_0 after validation, info.log; then the same 16 steps
+    (epoch 1's batches again) with the writer and without it, fenced, and
+    the synchronising calls in each loop counted by torch's sync debug
+    mode, which must be the same."""
+    from demovlp_tpu_torch.utils.writer import MetricsWriter
+
+    log_dir = trainer.writer.log_dir
+    recs = _read_scalars(log_dir)
+    train = [(r["step"], r["value"]) for r in recs if r["tag"] == "train/loss_train_0"]
+    val = [r for r in recs if r["tag"].endswith("loss_val_0")]
+    info = log_dir / "info.log"
+    log(f"[record] {log_dir.relative_to(tmp)}: {len(recs)} records, tags "
+        f"{sorted({r['tag'] for r in recs})}; info.log {info.stat().st_size if info.exists() else 0} "
+        f"bytes; TensorBoard sink {'attached' if trainer.writer._tb is not None else 'absent'}")
+    if train != list(zip(range(1, RECORD_STEPS + 1), trainer.step_losses)):
+        fail(f"train/loss_train_0 records {train} are not steps 1..{RECORD_STEPS} with the "
+             f"trainer's losses {trainer.step_losses}")
+    if not val or val[-1]["step"] != RECORD_STEPS or \
+            val[-1]["value"] != trainer.final_log["val_loss_0"]:
+        fail(f"no loss_val_0 record of the validation at step {RECORD_STEPS}: {val}")
+    if not info.exists() or "val_loss_0" not in info.read_text():
+        fail(f"{info} is missing or does not hold the epoch log")
+    if not (tmp / "train" / "web" / trainer.config["name"] / log_dir.name).is_dir():
+        fail("the run's web directory was not created")
+    # the [train] run's record, which later phases read, is put back after
+    saved = (trainer.writer, trainer.do_validation, trainer.step_times, trainer.step_losses,
+             trainer.step_text_lens)
+    rows = {}
+    for name in ("with the writer", "without"):
+        writer = MetricsWriter(tmp / "record-writer") if name == "with the writer" else None
+        steps, syncs = _epoch_with_writer(trainer, writer, 1)
+        if writer is not None:
+            writer.close()
+            logged = [r for r in _read_scalars(tmp / "record-writer")
+                      if r["tag"] == "train/loss_train_0"]
+            if len(logged) != RECORD_STEPS:
+                fail(f"the writer took {len(logged)} train losses in {RECORD_STEPS} steps")
+        ms = [1e3 * t for t in steps[1:]]
+        rows[name] = (float(np.median(ms)), min(ms), max(ms), syncs)
+        log(f"[record] {RECORD_STEPS} steps {name}: fenced median {rows[name][0]:.3f} ms over "
+            f"steps 2-{len(steps)} (spread {rows[name][1]:.3f}-{rows[name][2]:.3f}); "
+            f"synchronising calls reported in the loop: {syncs}")
+    (trainer.writer, trainer.do_validation, trainer.step_times, trainer.step_losses,
+     trainer.step_text_lens) = saved
+    (med_w, lo_w, hi_w, sync_w), (med_n, lo_n, hi_n, sync_n) = rows.values()
+    log(f"[record] median with the writer {med_w:.3f} ms within the run without it's spread: "
+        f"{lo_n <= med_w <= hi_n}; without within with's: {lo_w <= med_n <= hi_w}")
+    if sync_w != sync_n:
+        fail(f"the writer changed the loop's synchronising calls: {sync_w} with, {sync_n} without")
+
+
+def _profile_window(trainer, device, prof_dir: Path, batches, label: str) -> None:
+    """One traced window: a step before it (so it opens on a running loop),
+    then PROFILE_STEPS unfenced steps whose host pieces sit in annotate
+    spans, the batches drawn from `batches` inside the `data` span; the
+    trace's split by span, its top host ops and device kernels, the
+    device's busy share and its longest idle gaps."""
+    import gzip
+    import shutil
+
+    from demovlp_tpu_torch.train.async_metrics import DeferredMetrics
+    from demovlp_tpu_torch.train.steps import batch_to_device
+    from demovlp_tpu_torch.utils import profiling
+
+    lr = trainer.current_lr(1)
+    reads = []
+    deferred = DeferredMetrics(lambda m: reads.append(float(m["loss"])))
+    batch = batch_to_device(trainer.train_arrays(next(batches)), trainer.device,
+                            trainer.transfer_dtype)
+    deferred.push(trainer._train_step(batch, lr))
+    with profiling.trace(prof_dir, device) as prof:
+        for _ in range(PROFILE_STEPS):
+            with profiling.annotate("data"):
+                data = next(batches)
+            with profiling.annotate("prepare"):
+                arrays = trainer.train_arrays(data)
+            with profiling.annotate("to_device"):
+                batch = batch_to_device(arrays, trainer.device, trainer.transfer_dtype)
+            with profiling.annotate("step"):
+                m = trainer._train_step(batch, lr)
+            with profiling.annotate("consume"):
+                deferred.push(m)
+        with profiling.annotate("consume"):
+            deferred.flush()
+        torch.cuda.synchronize()
+    path = prof_dir / profiling.TRACE_FILE
+    events = json.loads(path.read_text())["traceEvents"]
+    with open(path, "rb") as src, gzip.open(str(path) + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    path.unlink()
+    tag = f"[profile] {label}:"
+    if len(reads) != PROFILE_STEPS + 1 or not all(np.isfinite(reads)):
+        fail(f"{tag} losses {reads}")
+    spans = [e for e in events if e.get("cat") == "user_annotation" and e["name"] in PROFILE_SPANS]
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                 if e.get("cat") in TRACE_DEVICE_CATS)
+    if len(spans) != len(PROFILE_SPANS) * PROFILE_STEPS + 1 or not dev:
+        fail(f"{tag} the trace holds {len(spans)} spans and {len(dev)} device events")
+    t0 = min(e["ts"] for e in spans)
+    t1 = max(e["ts"] + e["dur"] for e in spans)
+    window = t1 - t0
+    log(f"{tag} {PROFILE_STEPS} unfenced steps: window {window / 1e3:.3f} ms, "
+        f"{window / 1e3 / PROFILE_STEPS:.3f} ms a step; trace "
+        f"{os.path.relpath(str(path) + '.gz', ROOT)}")
+    for name in PROFILE_SPANS:
+        durs = [e["dur"] / 1e3 for e in spans if e["name"] == name]
+        log(f"{tag} span {name:9s}: mean {np.mean(durs):9.3f} ms host, "
+            f"{len(durs)} spans, {sum(durs) / (window / 1e3):.3f} of the window")
+    host = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") or e.key in PROFILE_SPANS:
+            continue
+        host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
+    host.sort(reverse=True)
+    log(f"{tag} host ops with the most self CPU time (the window's {PROFILE_STEPS + 1} step "
+        "launches and reads):")
+    for ms, count, key in host[:10]:
+        log(f"{tag}   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    by_kernel = {}
+    for a, b, name in dev:
+        by_kernel[name] = by_kernel.get(name, 0.0) + (b - a) / 1e3
+    log(f"{tag} device kernels and copies with the most time:")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"{tag}   {ms:9.3f} ms  {name[:100]}")
+    merged = []
+    for a, b, _ in dev:
+        a, b = max(a, t0), min(b, t1)
+        if b <= a:
+            continue
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    edges = [t0] + [x for ab in merged for x in ab] + [t1]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
+                   for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]), reverse=True)
+    log(f"{tag} device busy {busy / 1e3:.3f} ms of {window / 1e3:.3f} ms: busy share "
+        f"{busy / window:.3f}; {len(gaps)} idle gaps, {sum(g[0] for g in gaps) / 1e3:.3f} ms idle")
+    for dur, a, b in gaps[:5]:
+        overlap = {}
+        for e in spans:
+            o = min(b, e["ts"] + e["dur"]) - max(a, e["ts"])
+            if o > 0:
+                overlap[e["name"]] = overlap.get(e["name"], 0.0) + o / 1e3
+        where = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(overlap.items(),
+                                                                key=lambda kv: -kv[1]))
+        log(f"{tag}   idle gap {dur / 1e3:8.3f} ms at +{(a - t0) / 1e3:.3f} ms; host in: "
+            f"{where or 'no span'}")
+
+
+def phase_profile(trainer, device, out_dir: Path) -> None:
+    """profiling.trace over PROFILE_STEPS unfenced steps of the pre-training
+    trainer, the loop's host pieces in annotate spans (the JAX
+    trainer has no spans of its own), twice: with the loader drawing the
+    next batches on its thread during the window (as training runs), and
+    with the window's batches drawn before it (the loader's thread done),
+    which shows what the host's own pieces cost without it."""
+    dl = trainer.data_loader[0]
+    lens = list(trainer.step_text_lens)  # the run's record; train_arrays appends
+    dl.set_epoch(3)
+    batches = iter(dl)
+    _profile_window(trainer, device, out_dir / "profile", batches, "loader drawing")
+    batches.close()
+    dl.set_epoch(4)
+    batches = iter(dl)
+    drawn = [next(batches) for _ in range(PROFILE_STEPS + 1)]
+    batches.close()
+    _profile_window(trainer, device, out_dir / "profile-loader-idle", iter(drawn), "loader idle")
+    trainer.step_text_lens = lens
+
+
+def _widths(model) -> dict:
+    """The model's widths in retrieval_step_flops_model's terms."""
+    om, tc = model.object_model, model.text_model.config
+    return dict(proj_dim=om.proj.out_features, obj_depth=len(om.blocks),
+                obj_dim=om.cls_token.shape[-1], text_layers=tc.n_layers, text_dim=tc.dim)
+
+
+def phase_mfu(card: str, device, trainers: dict) -> None:
+    """Model FLOPs a step (utils/flops.retrieval_step_flops_model at each
+    run's shapes and widths) and MFU of each fenced median against the
+    card's bf16 peak, a text length at a time (step 1 left out where its
+    length has others); beside them FlopCounterMode's count of one more
+    pre-training step (aten ops only: the local-loss kernels, called
+    through ctypes, are not seen) against the model's tower and global-sims
+    part."""
+    from demovlp_tpu_torch.train.steps import batch_to_device, prepare_batch
+    from demovlp_tpu_torch.utils import flops
+
+    peak = flops.peak_bf16_flops(device)
+    log(f"[mfu] {card}: dense bf16 peak {peak} FLOP/s (utils/flops.py)")
+    if peak is None:
+        fail(f"no bf16 peak for {torch.cuda.get_device_name(device)}")
+    for tag, trainer in trainers.items():
+        obj = trainer.config["arch"]["args"]["object_params"]
+        b = trainer.data_loader[0].batch_size
+        frames, regions = int(obj["num_frames"]), int(obj["object_num"])
+        widths = _widths(trainer.model)
+        lens, steps = trainer.step_text_lens, trainer.step_times
+        for length in sorted(set(lens)):
+            times = [t for i, (n, t) in enumerate(zip(lens, steps))
+                     if n == length and i > 0] or [steps[0]]
+            model_flops = flops.retrieval_step_flops_model(b, frames, regions, length, **widths)
+            sec = float(np.median(times))
+            log(f"[mfu] {tag} (batch {b}, f = {frames}, k = {regions}, text {length}): "
+                f"{model_flops:.4e} model FLOP a step, fenced median {1e3 * sec:.3f} ms over "
+                f"{len(times)} steps: {model_flops / sec:.4e} FLOP/s, MFU "
+                f"{flops.mfu(model_flops / sec, device):.4f}")
+    trainer = trainers["train"]
+    dl = trainer.data_loader[0]
+    dl.set_epoch(1)
+    batch = batch_to_device(prepare_batch(next(iter(dl)), trainer.tokenizer), trainer.device,
+                            trainer.transfer_dtype)
+    counted = flops.step_flops(trainer._train_step, batch, trainer.current_lr(1))
+    torch.cuda.synchronize()
+    b, length = batch["input_ids"].shape
+    obj = trainer.config["arch"]["args"]["object_params"]
+    shape = (b, int(obj["num_frames"]), int(obj["object_num"]), length)
+    widths = _widths(trainer.model)
+    towers = flops.retrieval_step_flops_model(*shape, use_local=False, **widths)
+    log(f"[mfu] FlopCounterMode over one pre-training step: {counted:.4e} FLOP (aten ops); the "
+        f"model's towers and global sims {towers:.4e} (ratio {counted / towers:.4f}); the model "
+        f"with the local loss {flops.retrieval_step_flops_model(*shape, **widths):.4e}")
+    if counted <= 0:
+        fail("FlopCounterMode counted no FLOP in a train step")
+
+
+def _match_regions(got: dict, want: dict, grid) -> tuple:
+    """Two extractor outputs (CPU tensors) matched frame by frame by patch
+    (from the geometry's x1, y1): (max |object diff| over the patches both
+    selected / max |want object|, the slots whose patch sits elsewhere on
+    the other side or not at all, the largest confidence gap such a slot
+    crosses)."""
+    gh, gw = grid
+    k = got["conf"].shape[-1]
+
+    def patches(o):
+        return (torch.round(o[..., 2049] * gh) * gw + torch.round(o[..., 2048] * gw)).long()
+
+    pg, pw = patches(got["object"]).reshape(-1, k), patches(want["object"]).reshape(-1, k)
+    cg, cw = got["conf"].reshape(-1, k), want["conf"].reshape(-1, k)
+    og = got["object"].reshape(pg.shape[0], k, -1)
+    ow = want["object"].reshape(pg.shape[0], k, -1)
+    err, swaps, gap = 0.0, 0, 0.0
+    for r in range(pg.shape[0]):
+        slot_w = {p: s for s, p in enumerate(pw[r].tolist())}
+        for s, p in enumerate(pg[r].tolist()):
+            s2 = slot_w.get(p)
+            if s2 is None:  # kept on one side only: a tie at the cut
+                swaps += 1
+                gap = max(gap, abs(float(cg[r, s] - cw[r, -1])))
+                continue
+            err = max(err, float((og[r, s] - ow[r, s2]).abs().max()))
+            if s2 != s:
+                swaps += 1
+                gap = max(gap, abs(float(cg[r, s] - cw[r, s2])), abs(float(cw[r, s] - cw[r, s2])))
+    return err / float(want["object"].abs().max()), swaps, gap
+
+
+def _video_frames(seed: int, index: int, n: int, frames: int, size: int) -> np.ndarray:
+    return np.random.default_rng([seed, index]).random((n, frames, size, size, 3),
+                                                       dtype=np.float32)
+
+
+def phase_extractor(device) -> None:
+    """PatchRegionExtractor at its default widths on seeded frames, in the
+    serve config's compute dtype: EX_VIDEOS videos in batches of EX_BATCH;
+    card vs CPU on the first batch in f32; the regions embedded by the serve
+    config's model and scored by combined_sims (the f32 forward kernel,
+    launch counts reset just before and read just after)."""
+    from demovlp_tpu_torch import serve
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.device import to_device
+    from demovlp_tpu_torch.models import PatchRegionExtractor
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    cfg = json.loads(SERVE_CFG.read_text())
+    obj = cfg["arch"]["args"]["object_params"]
+    f, k = int(obj["num_frames"]), int(obj["object_num"])
+    dtype = common.compute_dtype(cfg)
+    ref = PatchRegionExtractor(object_num=k)
+    ref.reset_parameters(torch.Generator().manual_seed(EX_SEED))
+    ref.eval()
+    size = ref.image_size[0]
+    ex = PatchRegionExtractor(object_num=k, compute_dtype=dtype)
+    ex.load_state_dict(ref.state_dict())
+    ex = ex.to(device).eval()
+    ex32 = PatchRegionExtractor(object_num=k)
+    ex32.load_state_dict(ref.state_dict())
+    ex32 = ex32.to(device).eval()
+
+    first = _video_frames(EX_SEED, 0, EX_BATCH, f, size)
+    with torch.inference_mode():
+        got = {key: v.cpu() for key, v in ex32(to_device(first, device)).items()}
+        t0 = time.perf_counter()
+        want = ref(torch.from_numpy(first))
+        cpu_s = time.perf_counter() - t0
+    err_obj, swaps, tie_gap = _match_regions(got, want, ref.grid)
+    err_conf = float((got["conf"] - want["conf"]).abs().max())
+    slots = got["conf"].numel()
+    log(f"[extractor] card vs CPU, f32, {EX_BATCH} videos x {f} frames ({cpu_s:.1f} s on the "
+        f"CPU): object max |err| / max |CPU| over the patches both selected {err_obj:.3e}, conf "
+        f"max |err| {err_conf:.3e} slot for slot; {slots - swaps} of {slots} slots hold the same "
+        f"patch, {swaps} near-tie swaps (largest confidence gap across one {tie_gap:.3e})")
+    if err_obj > EX_TOL_OBJECT or err_conf > EX_TOL_CONF or tie_gap > EX_TOL_CONF:
+        fail(f"extractor card vs CPU: object {err_obj} (limit {EX_TOL_OBJECT}), conf {err_conf} "
+             f"(limit {EX_TOL_CONF}), a swap across a confidence gap of {tie_gap} "
+             f"(limit {EX_TOL_CONF})")
+    del ex32, ref
+
+    loader = common.init_dataloaders(cfg, val_split="test", train=False)[1][0]
+    texts = [loader.dataset[i]["text"] for i in range(EX_VIDEOS)]
+    batches, ms = [], []
+    for i in range(EX_VIDEOS // EX_BATCH):
+        frames = to_device(_video_frames(EX_SEED, i, EX_BATCH, f, size), device)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.inference_mode():
+            start.record()
+            out = ex(frames)
+            stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+        lo = i * EX_BATCH
+        batches.append({"text": texts[lo:lo + EX_BATCH],
+                        "object": out["object"].cpu().numpy(),
+                        "object_mask": out["object_mask"].cpu().numpy(),
+                        "meta": [{"paths": f"extractor://{lo + j}", "raw_captions": t}
+                                 for j, t in enumerate(texts[lo:lo + EX_BATCH])]})
+        if out["object"].shape != (EX_BATCH, f, k, 2054) or \
+                not bool(torch.isfinite(out["object"]).all()):
+            fail(f"extractor batch {i}: shape {tuple(out['object'].shape)} or non-finite values")
+    steady = ms[1:] or ms
+    log(f"[extractor] {EX_VIDEOS} videos x {f} frames of {size} x {size} ({dtype}, 384 x 6 "
+        f"layers x 6 heads, patch 16, k = {k}): ms a batch of {EX_BATCH} {[round(x, 3) for x in ms]}; "
+        f"{EX_BATCH * f * 1e3 / np.mean(steady):.1f} frames/s over batches 2-{len(ms)}")
+
+    class Batches(list):
+        batch_size = EX_BATCH
+
+    model = common.build_serving_model(cfg, device, None, seed=0)
+    cat, _ = serve.embed_loader(serve.make_embed_step(model), Batches(batches),
+                                common.build_tokenizer_from_config(cfg), device,
+                                transfer_dtype=dtype if dtype == torch.bfloat16 else None)
+    del model
+    xk.reset_launch_counts()
+    t0 = time.perf_counter()
+    sims = serve.combined_sims(cat, device, **common.local_score_args(cfg))
+    torch.cuda.synchronize()
+    sims_s = time.perf_counter() - t0
+    launches = dict(xk.LAUNCHES)
+    log(f"[extractor] embedded by the serve config's model and scored: {sims.shape} sims in "
+        f"{sims_s:.3f} s; kernel launches {launches}")
+    if sims.shape != (EX_VIDEOS, EX_VIDEOS) or not np.isfinite(sims).all():
+        fail(f"extractor sims: shape {sims.shape} or non-finite")
+    if launches[xk.KERNEL] != 2:
+        fail(f"the extractor's sims launched the f32 forward {launches[xk.KERNEL]} times "
+             "(expected 2: one a direction)")
+
+
 def phase_timing(cat, device, tag: str = "serve"):
     """Kernel and plain version on the main path's own local-sims inputs
     (`tag`: serve, one serve's 1000 x 1000 local sims; or query, one
@@ -2081,6 +2530,7 @@ def main() -> None:
         query = phase_query(tmp, cat, device)
         phase_train_ref(device)
         trainer, train_launches = phase_train(tmp, device)
+        phase_record(tmp, trainer)
         fast_trainer, fast_launches = phase_pretrain_fast(tmp, device, trainer)
         phase_mlm(tmp, device)
         phase_remat(device)
@@ -2092,6 +2542,7 @@ def main() -> None:
         phase_predict_qa(tmp, device, qa_trainer)
         del qa_trainer
         phase_mc(tmp, device)
+        phase_extractor(device)
     inputs = phase_train_local(trainer)
     t = phase_timing(cat, device)
     tq = phase_timing({"l_o": query["gallery"]["l_o"], "o_mask": query["gallery"]["o_mask"],
@@ -2114,6 +2565,12 @@ def main() -> None:
     ta = phase_timing_attention(device)
     phase_step_split(trainer, device, "train")
     phase_step_split(ft_trainer, device, "finetune f=8")
+    # after every other profiler run: a profiler run opened before the
+    # card's first training step left later runs' key_averages without
+    # the kernels launched through ctypes (the raw trace still held them)
+    phase_profile(trainer, device, out_dir)
+    phase_mfu(card, device, {"train": trainer, "pretrain-fast": fast_trainer,
+                             "finetune f=8": ft_trainer})
     src = "demovlp_tpu_torch/csrc/"
     kernels = [{
         "name": "xattn_sim_fwd",

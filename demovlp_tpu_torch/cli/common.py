@@ -1,5 +1,6 @@
 """Entry-point assembly: config -> model, tokenizer, loaders, loss, metrics,
-optimizer and local-score knobs (counterpart of demovlp_tpu/cli/common.py).
+optimizer, local-score knobs, the scalar writer and the retrieval
+visualizer (counterpart of demovlp_tpu/cli/common.py).
 A plain name -> constructor table stands in for the JAX package's registry."""
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from demovlp_tpu_torch.config import (apply_overrides, build_train_argparser,
-                                      make_run_dir, read_config)
+                                      make_run_dir, read_config, run_log_dir, run_web_dir)
 from demovlp_tpu_torch.convert.from_jax import load_reference_state_dict
 from demovlp_tpu_torch.convert.torch_import import load_pretrained
 from demovlp_tpu_torch.data.loader import MultiDistTextObjectVideoDataLoader
@@ -24,6 +25,8 @@ from demovlp_tpu_torch.models import (DistilBertConfig, ObjectMCRelation, Object
 from demovlp_tpu_torch.train.checkpoint import find_latest_checkpoint
 from demovlp_tpu_torch.train.optim import AdamW
 from demovlp_tpu_torch.train.steps import parse_text_buckets
+from demovlp_tpu_torch.utils.visualizer import RetrievalVis
+from demovlp_tpu_torch.utils.writer import ExperimentWriter, MetricsWriter
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -191,11 +194,38 @@ def local_score_args(config: Dict[str, Any]) -> Dict:
     }
 
 
+def build_writer(config: Dict[str, Any], log_dir) -> MetricsWriter:
+    """The run's scalar writer into `log_dir`: ExperimentWriter when
+    `trainer.neptune` is set (no experiment backend is attached by the
+    CLIs), else MetricsWriter."""
+    if config.get("trainer", {}).get("neptune"):
+        return ExperimentWriter(log_dir)
+    return MetricsWriter(log_dir)
+
+
+_VISUALIZERS = {"RetrievalVis": RetrievalVis}
+
+
+def build_visualizer(config: Dict[str, Any], web_dir) -> Optional[RetrievalVis]:
+    """The `visualizer` section's class writing into `web_dir`, or None
+    when its type is empty (every config under configs/ today)."""
+    section = config.get("visualizer", {}) or {}
+    name = section.get("type")
+    if not name:
+        return None
+    if name not in _VISUALIZERS:
+        raise NotImplementedError(f"visualizer {name!r} is not ported")
+    return _VISUALIZERS[name](exp_name=config["name"], web_dir=str(web_dir),
+                              **section.get("args", {}))
+
+
 def run_trainer(trainer_cls, description: str, val_split: str,
                 argv: Optional[Sequence[str]] = None, fence_steps: bool = False):
     """A train CLI: parse the command line, build everything from the
     config and run `trainer_cls` (RetrievalTrainer, QATrainer or MCTrainer).
-    Returns the trainer with its `final_log`."""
+    The run's scalars go to `<save_dir>/log/<name>/<stamp>/scalars.jsonl`
+    (closed when the run ends), its log to info.log beside them. Returns
+    the trainer with its `final_log`."""
     args = build_train_argparser(description).parse_args(argv)
     device = resolve_device(args.device)
     config = apply_overrides(read_config(args.config), args)
@@ -214,11 +244,16 @@ def run_trainer(trainer_cls, description: str, val_split: str,
         transfer_dtype=torch.bfloat16 if bf16 else None, fence_steps=fence_steps,
         schedule=args.schedule, learning_rate1=args.learning_rate1,
         lr_mode=cfg_trainer.get("lr_mode", "reference"), rng_seed=args.seed,
+        writer=build_writer(config, run_log_dir(save_dir)),
+        visualizer=build_visualizer(config, run_web_dir(save_dir)),
     )
-    resume = args.resume or cfg_trainer.get("resume")
-    if resume == "auto":
-        resume = find_latest_checkpoint(cfg_trainer.get("save_dir", "exps"), config["name"])
-    if resume:
-        trainer.resume(resume)
-    trainer.final_log = trainer.train()
+    try:
+        resume = args.resume or cfg_trainer.get("resume")
+        if resume == "auto":
+            resume = find_latest_checkpoint(cfg_trainer.get("save_dir", "exps"), config["name"])
+        if resume:
+            trainer.resume(resume)
+        trainer.final_log = trainer.train()
+    finally:
+        trainer.writer.close()
     return trainer

@@ -6,9 +6,12 @@ plain dicts, and parses the command lines. `-r` names a reference-schema
 optimizer state, epoch) for the train CLI; the port writes one file that
 is both. The train CLI's overrides follow the JAX package: `--lr` ->
 optimizer.args.lr, `--bs` -> data_loader.args.batch_size; `-sc` and `-lr1`
-set the step-decay schedule. Each training run writes into
-`<trainer.save_dir>/models/<name>/<stamp>/` (stamp: $DEMOVLP_RUN_ID, else
-the time), with a config.json snapshot there.
+set the step-decay schedule. Each training run writes into three
+directories of one stamp ($DEMOVLP_RUN_ID, else the time), as the JAX
+package's ConfigParser lays them out under `<trainer.save_dir>`:
+`models/<name>/<stamp>/` (checkpoints, a config.json snapshot),
+`log/<name>/<stamp>/` (info.log, scalars.jsonl) and `web/<name>/<stamp>/`
+(the retrieval visualizer's index.html).
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import os
 from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict
+
+from demovlp_tpu_torch.utils.logging import setup_logging
 
 # CLI overrides: flag name -> path into the config tree
 OVERRIDES = {
@@ -65,10 +70,30 @@ def apply_overrides(config: Dict[str, Any], args: argparse.Namespace) -> Dict[st
 
 
 def make_run_dir(config: Dict[str, Any]) -> Path:
-    """The run's checkpoint directory, created, with config.json in it."""
+    """The run's checkpoint directory, created, with config.json in it; its
+    log and web directories (`run_log_dir`, `run_web_dir`) are created too,
+    and the root logger writes the log directory's info.log."""
     stamp = os.environ.get("DEMOVLP_RUN_ID", "") or datetime.now().strftime(r"%m%d_%H%M%S")
     root = Path(config.get("trainer", {}).get("save_dir", "exps"))
     run_dir = root / "models" / config.get("name", "exp") / stamp
     run_dir.mkdir(parents=True, exist_ok=True)
     (run_dir / "config.json").write_text(json.dumps(config, indent=2))
+    run_web_dir(run_dir).mkdir(parents=True, exist_ok=True)
+    setup_logging(run_log_dir(run_dir))
     return run_dir
+
+
+def _sibling(run_dir: Path, kind: str) -> Path:
+    """<save_dir>/models/<name>/<stamp> -> <save_dir>/<kind>/<name>/<stamp>."""
+    run_dir = Path(run_dir)
+    return run_dir.parents[2] / kind / run_dir.parent.name / run_dir.name
+
+
+def run_log_dir(run_dir) -> Path:
+    """The log directory of the run whose checkpoint directory is `run_dir`."""
+    return _sibling(run_dir, "log")
+
+
+def run_web_dir(run_dir) -> Path:
+    """The web directory of the run whose checkpoint directory is `run_dir`."""
+    return _sibling(run_dir, "web")

@@ -15,6 +15,9 @@ The reference creates two families of parameters it never applies: the
 final `object_model.norm` LayerNorm and each block's `norm3` when there is
 no time module. The port does not create them, so `from_jax` never emits
 them and `load_reference_state_dict` drops them from a reference `.pth`.
+
+`extractor_from_jax` carries a flax PatchRegionExtractor's params over to
+the port's module, whose keys follow the flax names.
 """
 from __future__ import annotations
 
@@ -127,6 +130,45 @@ def from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         out["mlm_head.vocab_layer_norm.weight"] = _np(mlm["vocab_layer_norm"]["scale"])
         out["mlm_head.vocab_layer_norm.bias"] = _np(mlm["vocab_layer_norm"]["bias"])
         _dense(out, mlm["vocab_projector"], "mlm_head.vocab_projector")
+    return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def _flax_ln(out: Dict, tree: Mapping, key: str) -> None:
+    out[f"{key}.weight"] = _np(tree["scale"])
+    out[f"{key}.bias"] = _np(tree["bias"])
+
+
+def extractor_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax PatchRegionExtractor params -> the port's PatchRegionExtractor
+    state_dict: the stem's HWIO kernel (p, p, 3, D) -> (D, 3, p, p); each
+    attention projection's DenseGeneral kernel, (D, H, hd) for query, key
+    and value and (H, hd, D) for out, -> a (D, D) Linear weight over the
+    flattened (H, hd) axis, with its (H, hd) bias flattened."""
+    tree = params.get("params", params)
+    out: Dict[str, np.ndarray] = {
+        "stem.weight": np.ascontiguousarray(_np(tree["stem"]["kernel"]).transpose(3, 2, 0, 1)),
+        "stem.bias": _np(tree["stem"]["bias"]),
+        "pos_embed": _np(tree["pos_embed"]),
+        "saliency_query": _np(tree["saliency_query"]),
+    }
+    i = 0
+    while f"block_{i}" in tree:
+        blk, bp = tree[f"block_{i}"], f"block_{i}."
+        _flax_ln(out, blk["norm1"], f"{bp}norm1")
+        _flax_ln(out, blk["norm2"], f"{bp}norm2")
+        for name in ("query", "key", "value"):
+            kernel = _np(blk["attn"][name]["kernel"])  # (D, H, hd)
+            out[f"{bp}attn.{name}.weight"] = np.ascontiguousarray(
+                kernel.reshape(kernel.shape[0], -1).T)
+            out[f"{bp}attn.{name}.bias"] = _np(blk["attn"][name]["bias"]).reshape(-1)
+        kernel = _np(blk["attn"]["out"]["kernel"])  # (H, hd, D)
+        out[f"{bp}attn.out.weight"] = np.ascontiguousarray(kernel.reshape(-1, kernel.shape[-1]).T)
+        out[f"{bp}attn.out.bias"] = _np(blk["attn"]["out"]["bias"])
+        _dense(out, blk["mlp"]["fc1"], f"{bp}mlp.fc1")
+        _dense(out, blk["mlp"]["fc2"], f"{bp}mlp.fc2")
+        i += 1
+    _flax_ln(out, tree["norm"], "norm")
+    _dense(out, tree["appearance_proj"], "appearance_proj")
     return {k: torch.tensor(v) for k, v in out.items()}
 
 

@@ -12,10 +12,13 @@ resized along the frame axis per `arch.args.load_temporal_fix`:
   * "bilinear": F.interpolate(mode="bilinear", align_corners=False) over
     the (frames, D) plane, which resamples the frame axis only.
 A checkpoint with more frames than the model is cut to the first F.
+
+`import_timm_vit` initialises the region tower from a timm ViT (the
+reference's non-strict load of a ViT-B/16 into its object transformer).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -74,3 +77,40 @@ def load_pretrained(model: torch.nn.Module, path: str, num_frames: int,
     model either."""
     model.load_state_dict(load_pretrained_state_dict(path, num_frames, temporal_fix or "zeros"),
                           strict=True)
+
+
+# per timm block: the parameters the region tower's block shares with it
+_TIMM_BLOCK_KEYS = tuple(f"{m}.{p}" for m in ("norm1", "norm2", "attn.qkv", "attn.proj",
+                                                "mlp.fc1", "mlp.fc2")
+                         for p in ("weight", "bias"))
+
+
+def _f32(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(torch.float32, copy=True).cpu()
+    return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+def import_timm_vit(vit_state_dict: Mapping, state_dict: Mapping[str, torch.Tensor],
+                    depth: int = 12) -> Dict[str, torch.Tensor]:
+    """A new reference-schema state dict: `state_dict` with the region tower
+    initialised from a timm ViT state dict (numpy arrays or tensors), as
+    the JAX package's `import_timm_vit`: `cls_token` ->
+    `object_model.cls_token`, and for each `blocks.{i}` (i < depth) present
+    in the timm dict its norm1, norm2, attn.qkv, attn.proj, mlp.fc1 and
+    mlp.fc2 weights and biases -> `object_model.blocks.{i}.*`. Blocks the
+    timm dict lacks, and every other key (embeddings, projections), keep
+    their values. A timm block the tower lacks raises KeyError."""
+    out = dict(state_dict)
+    if "cls_token" in vit_state_dict:
+        out["object_model.cls_token"] = _f32(vit_state_dict["cls_token"])
+    for i in range(depth):
+        src = f"blocks.{i}."
+        if f"{src}attn.qkv.weight" not in vit_state_dict:
+            continue
+        for key in _TIMM_BLOCK_KEYS:
+            dst = f"object_model.blocks.{i}.{key}"
+            if dst not in out:
+                raise KeyError(f"{dst}: the region tower has no block {i} for timm's {src}")
+            out[dst] = _f32(vit_state_dict[src + key])
+    return out

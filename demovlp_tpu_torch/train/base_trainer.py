@@ -9,7 +9,11 @@ Reference behaviour kept:
   * a checkpoint is saved EVERY epoch (`save_period` is accepted and, as in
     the reference, gates nothing), and copied to model_best on improvement;
   * `early_stop` is read and, as in the reference, never breaks the loop;
-  * resume restores weights, optimizer state, epoch and monitor_best.
+  * resume restores weights, optimizer state, epoch and monitor_best;
+  * the epoch logs and the resume line go to the "trainer" logger (the
+    console and the run's info.log, utils/logging.py); `writer` takes the
+    run's scalars and `visualizer` the retrieval rankings (either may be
+    None).
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from demovlp_tpu_torch.train.optim import step_decay_lr
 class BaseTrainer:
     def __init__(self, model, loss, metrics: List, optimizer, config: Dict[str, Any],
                  save_dir, schedule=(30, 40), learning_rate1: float = 2e-4,
-                 lr_mode: str = "reference", rng_seed: int = 0):
+                 lr_mode: str = "reference", rng_seed: int = 0, writer=None,
+                 visualizer=None):
         self.model = model
         self.loss = loss
         self.metrics = metrics
@@ -36,6 +41,8 @@ class BaseTrainer:
         self.lr_mode = lr_mode
         self.rng_seed = rng_seed  # the run's --seed (host-side draws, e.g. MLM masks)
         self.logger = logging.getLogger("trainer")
+        self.writer = writer
+        self.visualizer = visualizer
 
         cfg_trainer = config["trainer"]
         self.epochs = cfg_trainer["epochs"]
@@ -67,7 +74,7 @@ class BaseTrainer:
         self.start_epoch = int(meta.get("epoch", 0)) + 1
         if "monitor_best" in meta:
             self.mnt_best = meta["monitor_best"]
-        print(f"[train] resumed from {path} at epoch {self.start_epoch}", flush=True)
+        self.logger.info("Resumed from %s at epoch %d", path, self.start_epoch)
 
     @staticmethod
     def _flatten_log(epoch: int, result: Optional[Dict[str, Any]]) -> Dict[str, Any]:
@@ -92,7 +99,7 @@ class BaseTrainer:
         for epoch in range(self.start_epoch, self.epochs + 1):
             log = self._flatten_log(epoch, self._train_epoch(epoch))
             for key, value in log.items():
-                print(f"    {key:15s}: {value}", flush=True)
+                self.logger.info("    %-15s: %s", str(key), value)
             best = False
             if self.mnt_mode != "off":
                 if self.mnt_metric not in log:

@@ -81,6 +81,13 @@ class AdamW(torch.optim.Optimizer):
     def set_lr(self, lr: float) -> None:
         self.param_groups[0]["lr"] = float(lr)
 
+    @property
+    def step_count(self) -> int:
+        """Updates taken so far (0 before the first; restored with the
+        state dict), a host integer: reading it never waits for the card."""
+        params = self.param_groups[0]["params"]
+        return int(self.state.get(params[0], {}).get("count", 0)) if params else 0
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:

@@ -3,7 +3,8 @@ on the classifier's logits with a running accuracy; train text is trimmed
 to `trainer.text_buckets` when set (QA max-pools over every position, pads
 included, so trimming moves the loss as it does in the JAX package). Eval
 takes the argmax of every val sample's logits (serve.predict_qa) and scores
-them with `evaluate_qa`'s per-answer-type breakdown. One process: no
+them with `evaluate_qa`'s per-answer-type breakdown. Each train loss goes
+to the writer one step late, as in the retrieval trainer. One process: no
 gathers across hosts.
 """
 from __future__ import annotations
@@ -58,7 +59,7 @@ class QATrainer(BaseTrainer):
         for dl in self.data_loader:
             dl.set_epoch(epoch)
 
-        def consume(m, dl_idx, batch_idx, n_text):
+        def consume(m, dl_idx, batch_idx, step_no, n_text):
             nonlocal pos_cnt, tot_cnt
             loss_v = float(m["loss"])
             self.step_losses.append(loss_v)
@@ -68,7 +69,11 @@ class QATrainer(BaseTrainer):
             if batch_idx % self.log_step == 0:
                 print(f"loss:{loss_v}, acc: {pos_cnt / max(1, tot_cnt)}, "
                       f"postive/all : {pos_cnt}/{tot_cnt}", flush=True)
+            if self.writer is not None:
+                self.writer.set_step(step_no, "train")
+                self.writer.log_scalar(f"loss_train_{dl_idx}", loss_v)
 
+        step_no = self.optimizer.step_count  # as in RetrievalTrainer
         deferred = DeferredMetrics(consume)
         for batch_idx, data_li in enumerate(zip(*self.data_loader)):
             if (batch_idx + 1) * self.total_batch_sum > self.max_samples_per_epoch:
@@ -83,7 +88,8 @@ class QATrainer(BaseTrainer):
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                     self.step_times.append(time.perf_counter() - t0)
-                deferred.push(m, dl_idx, batch_idx, len(data["text"]))
+                step_no += 1
+                deferred.push(m, dl_idx, batch_idx, step_no, len(data["text"]))
                 n_steps += 1
             if batch_idx == self.len_epoch:
                 break

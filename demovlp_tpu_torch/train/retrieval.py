@@ -7,13 +7,17 @@ masked 80/10/10 on the host by `default_rng(seed + 1)`, as the JAX trainer
 draws it -> train step on the device -> the epoch's learning rate from the
 step-decay schedule. Losses are read one step late
 (train/async_metrics.py), so the host prepares the next batch while the
-card runs the current step.
+card runs the current step; each goes to the writer there, as
+`train/loss_train_{dl}` at the optimizer's update count, with no read of
+the card of its own.
 
 Eval: embed every val batch, assemble the embeddings on the host, then the
 global cosine sims plus the local sims through the f32 forward kernel
 (serve.combined_sims), and the retrieval metrics. The reference's
 orientation quirk is kept — global(text, video) + local(video, text) summed
-elementwise — and MSCOCO-named configs take every 5th video row.
+elementwise — and MSCOCO-named configs take every 5th video row. The
+visualizer (when configured) renders the rankings, and the writer takes
+`loss_val_{dl}`.
 """
 from __future__ import annotations
 
@@ -83,14 +87,20 @@ class RetrievalTrainer(BaseTrainer):
         for dl in self.data_loader:
             dl.set_epoch(epoch)
 
-        def consume(m, dl_idx, batch_idx):
+        def consume(m, dl_idx, batch_idx, step_no):
             loss_v = float(m["loss"])
             self.step_losses.append(loss_v)
             if batch_idx % self.log_step == 0:
                 print(f"loss:{loss_v}, global_loss: {float(m['global_loss'])}, "
                       f"local_loss: {float(m['local_loss'])}", flush=True)
             total_loss[dl_idx] += loss_v
+            if self.writer is not None:
+                self.writer.set_step(step_no, "train")
+                self.writer.log_scalar(f"loss_train_{dl_idx}", loss_v)
 
+        # the global step on the host: the optimizer's update count (restored
+        # on resume), advanced once a train step
+        step_no = self.optimizer.step_count
         deferred = DeferredMetrics(consume)
         for batch_idx, data_li in enumerate(zip(*self.data_loader)):
             if (batch_idx + 1) * self.total_batch_sum > self.max_samples_per_epoch:
@@ -104,7 +114,8 @@ class RetrievalTrainer(BaseTrainer):
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                     self.step_times.append(time.perf_counter() - t0)
-                deferred.push(m, dl_idx, batch_idx)
+                step_no += 1
+                deferred.push(m, dl_idx, batch_idx, step_no)
                 n_steps += 1
             if batch_idx == self.len_epoch:
                 break
@@ -129,13 +140,16 @@ class RetrievalTrainer(BaseTrainer):
                 rng=self._mlm_rng, mlm_probability=self.mlm_prob)
         return arrays
 
-    def embed(self, dl):
+    def embed(self, dl, metas: Optional[List[Dict[str, Any]]] = None):
         """Every sample of an eval loader once: (host embedding dict, mean
-        batch loss)."""
+        batch loss). Each sample's meta dict is appended to `metas` when a
+        list is given."""
         arrs: Dict[str, List[np.ndarray]] = {k: [] for k in EMBED_KEYS}
         total_val_loss, n_batches = 0.0, 0
         for data in dl:
             arrays, n_valid = pad_batch(prepare_batch(data, self.tokenizer), dl.batch_size)
+            if metas is not None:
+                metas.extend(data["meta"])
             keep = np.arange(dl.batch_size) < n_valid
             arrays["valid"] = keep.astype(np.float32)
             out, (loss, _, _) = self._eval_step(
@@ -154,7 +168,8 @@ class RetrievalTrainer(BaseTrainer):
         loss_args = self.config["loss"].get("args", {})
         local = self.loss.local_loss
         for dl_idx, dl in enumerate(self.valid_data_loader):
-            cat, res[f"val_loss_{dl_idx}"] = self.embed(dl)
+            metas: List[Dict[str, Any]] = []
+            cat, res[f"val_loss_{dl_idx}"] = self.embed(dl, metas)
             sims = combined_sims(
                 cat, self.device, use_local=bool(loss_args.get("use_local", True)),
                 lambda_softmax=local.lambda_softmax, focal_type=local.focal_type,
@@ -164,5 +179,11 @@ class RetrievalTrainer(BaseTrainer):
                 dl_metrics[metric.__name__] = r = metric(sims)
                 verbose(epoch, r, name=dl.dataset_name, mode=metric.__name__)
             nested[dl_idx] = dl_metrics
+            if self.visualizer is not None:
+                meta = {"paths": [m.get("paths", "") for m in metas],
+                        "raw_captions": [m.get("raw_captions", "") for m in metas]}
+                self.visualizer.visualize_ranking(sims, epoch, meta, dl_metrics)
+            if self.writer is not None:
+                self.writer.log_scalar(f"loss_val_{dl_idx}", res[f"val_loss_{dl_idx}"])
         res["nested_val_metrics"] = nested
         return res
