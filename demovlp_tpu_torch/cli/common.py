@@ -26,7 +26,7 @@ from demovlp_tpu_torch.train.checkpoint import find_latest_checkpoint
 from demovlp_tpu_torch.train.optim import AdamW
 from demovlp_tpu_torch.train.steps import parse_text_buckets
 from demovlp_tpu_torch.utils.visualizer import RetrievalVis
-from demovlp_tpu_torch.utils.writer import ExperimentWriter, MetricsWriter
+from demovlp_tpu_torch.utils.writer import MetricsWriter
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -194,15 +194,6 @@ def local_score_args(config: Dict[str, Any]) -> Dict:
     }
 
 
-def build_writer(config: Dict[str, Any], log_dir) -> MetricsWriter:
-    """The run's scalar writer into `log_dir`: ExperimentWriter when
-    `trainer.neptune` is set (no experiment backend is attached by the
-    CLIs), else MetricsWriter."""
-    if config.get("trainer", {}).get("neptune"):
-        return ExperimentWriter(log_dir)
-    return MetricsWriter(log_dir)
-
-
 _VISUALIZERS = {"RetrievalVis": RetrievalVis}
 
 
@@ -244,7 +235,7 @@ def run_trainer(trainer_cls, description: str, val_split: str,
         transfer_dtype=torch.bfloat16 if bf16 else None, fence_steps=fence_steps,
         schedule=args.schedule, learning_rate1=args.learning_rate1,
         lr_mode=cfg_trainer.get("lr_mode", "reference"), rng_seed=args.seed,
-        writer=build_writer(config, run_log_dir(save_dir)),
+        writer=MetricsWriter(run_log_dir(save_dir)),
         visualizer=build_visualizer(config, run_web_dir(save_dir)),
     )
     try:

@@ -1,4 +1,4 @@
-"""Scalar metric writers (counterpart of demovlp_tpu/utils/writer.py).
+"""Scalar metric writer (counterpart of demovlp_tpu/utils/writer.py).
 
 Duck-typed like the reference's TensorboardWriter: `.set_step(step, mode)`
 then `.log_scalar(tag, value)`. Every scalar goes to `scalars.jsonl` in the
@@ -7,11 +7,15 @@ is attached as well where `torch.utils.tensorboard` imports. On a step
 change the writer logs `steps_per_sec` over the wall time since the last
 one. Values reach the writer as host floats: it never reads a device
 tensor, so it adds no synchronisation with the card.
+
+The JAX package's ExperimentWriter (its `trainer.neptune` sink) has no
+counterpart: no CLI attaches an experiment backend to it, and with none
+attached it writes what MetricsWriter writes, which is what a config that
+sets `trainer.neptune` gets here.
 """
 from __future__ import annotations
 
 import json
-import logging
 import time
 from pathlib import Path
 from typing import Optional
@@ -59,25 +63,3 @@ class MetricsWriter:
         self._fh.close()
         if self._tb is not None:
             self._tb.close()
-
-
-class ExperimentWriter(MetricsWriter):
-    """The `trainer.neptune` sink: the JSONL / TensorBoard sinks, and each
-    scalar forwarded to an attached experiment object that duck-types
-    `log_scalar(name, value, step)` (sacred's Experiment API). With none
-    attached it writes what MetricsWriter writes. An experiment backend that
-    raises is logged with its traceback and never stops training."""
-
-    def __init__(self, log_dir, experiment=None, use_tensorboard: bool = True):
-        super().__init__(log_dir, use_tensorboard=use_tensorboard)
-        self.experiment = experiment
-
-    def log_scalar(self, tag: str, value, step: Optional[int] = None) -> None:
-        super().log_scalar(tag, value, step)
-        if self.experiment is not None:
-            name = f"{self.mode}/{tag}" if self.mode else tag
-            try:
-                self.experiment.log_scalar(name, float(value),
-                                           self.step if step is None else step)
-            except Exception:  # a boundary: the backend must not end the run
-                logging.getLogger(__name__).exception("experiment.log_scalar(%r) failed", name)

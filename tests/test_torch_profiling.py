@@ -1,8 +1,8 @@
 """Profiling hooks on the CPU: `trace` writes a Chrome trace holding the
 `annotate` spans (also when the block raises); `StepTimer` gives the JAX
 package's summary for the same clock readings (both modules' perf_counter
-patched); `device_memory_stats` is {} with no card; `dump_profile` writes
-the JAX package's file."""
+patched); `device_memory_stats` is {} with no card and keyed by card
+with cards; `dump_profile` writes the JAX package's file."""
 from __future__ import annotations
 
 import json
@@ -74,3 +74,11 @@ def test_dump_profile_matches_jax(tmp_path, monkeypatch):
 def test_device_memory_stats_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tprof.device_memory_stats() == {}
+
+
+def test_device_memory_stats_by_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "memory_stats", lambda i: {"allocated_bytes.all.peak": 10 + i})
+    assert tprof.device_memory_stats() == {"cuda:0": {"allocated_bytes.all.peak": 10},
+                                           "cuda:1": {"allocated_bytes.all.peak": 11}}

@@ -1,5 +1,7 @@
-"""The run's record on the CPU: the port's MetricsWriter and ExperimentWriter
-against the JAX package's on the same call sequence, and what the port's
+"""The run's record on the CPU: the port's MetricsWriter against the JAX
+package's MetricsWriter and its ExperimentWriter as its CLIs build it (no
+experiment attached, under `trainer.neptune`) on the same call sequences;
+and what the port's
 train CLIs leave in `<save_dir>/log/<name>/<stamp>/` (scalars.jsonl,
 info.log) and `<save_dir>/web/<name>/<stamp>/` (index.html with a
 visualizer), with the JAX trainers' tags and steps: `train/loss_train_0`
@@ -17,7 +19,7 @@ from pathlib import Path
 import pytest
 
 from demovlp_tpu.utils import writer as jwriter
-from demovlp_tpu_torch.cli import common, train, train_mc, train_qa
+from demovlp_tpu_torch.cli import train, train_mc, train_qa
 from demovlp_tpu_torch.utils import writer as twriter
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -33,66 +35,44 @@ def _clock(start=100.0, tick=0.25):
     return now
 
 
-class _Experiment:
-    def __init__(self):
-        self.calls = []
+# call sequences: a fresh run's train and val steps; and a resumed run's,
+# starting at step 5 and setting one step twice
+_SEQUENCES = {
+    "fresh": [("log", "loss_val_0", 3.5), ("step", 1, "train"), ("log", "loss_train_0", 2.0),
+              ("step", 2, "train"), ("log", "loss_train_0", 1.75), ("step", 4, "val"),
+              ("log", "loss_val_0", 1.5, 7), ("step", 0, ""), ("log", "plain", 0.5)],
+    "resumed": [("step", 5, "train"), ("log", "loss_train_0", 1.25), ("step", 5, "train"),
+                ("log", "loss_train_0", 1.0), ("step", 6, "train"), ("log", "loss_val_0", 0.5)],
+}
 
-    def log_scalar(self, name, value, step):
-        self.calls.append((name, value, step))
 
-
-def _drive(module, cls, log_dir, monkeypatch):
-    """One call sequence through `cls`; (records without the time field,
-    the attached experiment's calls or None)."""
+def _drive(module, cls, log_dir, monkeypatch, sequence):
+    """One call sequence through `cls`; the records without the time field."""
     monkeypatch.setattr(module, "time", types.SimpleNamespace(time=_clock()))
-    exp = _Experiment() if cls == "ExperimentWriter" else None
-    kwargs = {"experiment": exp} if exp is not None else {}
-    w = getattr(module, cls)(log_dir, use_tensorboard=False, **kwargs)
-    w.log_scalar("loss_val_0", 3.5)
-    w.set_step(1, "train")
-    w.log_scalar("loss_train_0", 2.0)
-    w.set_step(2, "train")
-    w.log_scalar("loss_train_0", 1.75)
-    w.set_step(4, "val")
-    w.log_scalar("loss_val_0", 1.5, step=7)
-    w.set_step(0, "")
-    w.log_scalar("plain", 0.5)
+    w = getattr(module, cls)(log_dir, use_tensorboard=False)
+    for call, *args in _SEQUENCES[sequence]:
+        (w.set_step if call == "step" else w.log_scalar)(*args)
     w.close()
     lines = (Path(log_dir) / "scalars.jsonl").read_text().splitlines()
     recs = [json.loads(line) for line in lines]
     assert all(set(r) == {"tag", "value", "step", "t"} for r in recs)
-    return [(r["tag"], r["value"], r["step"]) for r in recs], exp and exp.calls
+    return [(r["tag"], r["value"], r["step"]) for r in recs]
 
 
+@pytest.mark.parametrize("sequence", sorted(_SEQUENCES))
 @pytest.mark.parametrize("cls", ["MetricsWriter", "ExperimentWriter"])
-def test_writer_records_match_jax(cls, tmp_path, monkeypatch):
-    got, got_exp = _drive(twriter, cls, tmp_path / "port", monkeypatch)
-    want, want_exp = _drive(jwriter, cls, tmp_path / "jax", monkeypatch)
+def test_writer_records_match_jax(cls, sequence, tmp_path, monkeypatch):
+    got = _drive(twriter, "MetricsWriter", tmp_path / "port", monkeypatch, sequence)
+    want = _drive(jwriter, cls, tmp_path / "jax", monkeypatch, sequence)
     assert got == want
-    assert got_exp == want_exp
     tags = [t for t, _, _ in got]
-    assert tags.count("train/steps_per_sec") == 2 and "val/steps_per_sec" in tags
-    assert ("val/loss_val_0", 1.5, 7) in got and ("plain", 0.5, 0) in got
-
-
-@pytest.mark.parametrize("trainer_cfg,cls", [({"neptune": True}, twriter.ExperimentWriter),
-                                             ({"neptune": False}, twriter.MetricsWriter),
-                                             ({}, twriter.MetricsWriter)])
-def test_build_writer_follows_trainer_neptune(tmp_path, trainer_cfg, cls):
-    w = common.build_writer({"trainer": trainer_cfg}, tmp_path / "log")
-    w.close()
-    assert type(w) is cls and (tmp_path / "log" / "scalars.jsonl").is_file()
-
-
-def test_experiment_backend_failure_does_not_stop_training(tmp_path):
-    class Broken:
-        def log_scalar(self, *args):
-            raise RuntimeError("backend down")
-
-    w = twriter.ExperimentWriter(tmp_path, experiment=Broken(), use_tensorboard=False)
-    w.log_scalar("loss", 2.0)
-    w.close()
-    assert json.loads((tmp_path / "scalars.jsonl").read_text())["value"] == 2.0
+    if sequence == "fresh":
+        assert tags.count("train/steps_per_sec") == 2 and "val/steps_per_sec" in tags
+        assert ("val/loss_val_0", 1.5, 7) in got and ("plain", 0.5, 0) in got
+    else:
+        # the rate is logged before the step moves on, at the step before
+        assert got[:2] == [("train/steps_per_sec", 5 / 0.25, 0), ("train/loss_train_0", 1.25, 5)]
+        assert ("train/steps_per_sec", 0.0, 5) in got
 
 
 def test_step_count_is_the_update_count_and_survives_a_state_dict():
@@ -112,9 +92,14 @@ def test_step_count_is_the_update_count_and_survives_a_state_dict():
     assert restored.step_count == 3
 
 
-def _config(tmp_path, name, epochs=1, visualizer=""):
+def _config(tmp_path, name, epochs=1, visualizer="", neptune=False):
+    """The smoke config `name` saving under tmp_path; `trainer.neptune`
+    set when `neptune` (the JAX CLIs' ExperimentWriter switch, which
+    changes no record)."""
     cfg = json.loads((ROOT / "configs" / "smoke" / name).read_text())
     cfg["trainer"].update(save_dir=str(tmp_path), epochs=epochs)
+    if neptune:
+        cfg["trainer"]["neptune"] = True
     cfg["visualizer"] = {"type": visualizer, "args": {"num_samples": 4}}
     path = tmp_path / f"{epochs}-{name}"
     path.write_text(json.dumps(cfg))
@@ -131,9 +116,10 @@ def _train_losses(recs):
     return [(r["step"], r["value"]) for r in recs if r["tag"] == "train/loss_train_0"]
 
 
-def test_retrieval_cli_writes_the_run_record(tmp_path, monkeypatch):
+@pytest.mark.parametrize("neptune", [False, True])
+def test_retrieval_cli_writes_the_run_record(tmp_path, monkeypatch, neptune):
     monkeypatch.setenv("DEMOVLP_RUN_ID", "rec1")
-    cfg, path = _config(tmp_path, "synthetic_retrieval.json")
+    cfg, path = _config(tmp_path, "synthetic_retrieval.json", neptune=neptune)
     trainer = train.run(["-c", str(path), "--device", "cpu"])
     log_dir, recs = _records(tmp_path, cfg, "rec1")
     n = len(trainer.step_losses)
