@@ -45,6 +45,25 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 against the CPU's on the same embeddings; the single query's
                 scoring over the whole gallery, card against CPU, and the
                 CLI's single-query sims against it;
+  6c. dist   — the parallel layer (parallel/mesh.py, parallel/tp.py): (a)
+                NCCL at world size 1: the train CLI on the smoke config under
+                torchrun's environment (setup_distributed joins no group, so
+                it is the one-process path), then a world-1 NCCL group, the
+                (1, 1) mesh, the row gather and the gradient sum through it;
+                (b) two gloo ranks sharing the card (NCCL refuses two ranks on
+                one device), each killed after DIST_TIMEOUT s: 2 data-parallel
+                train steps of configs/bench/ab_local_bf16.json at 64 rows a
+                rank (global 128) held to the one-process 128-row steps on the
+                concatenated batches (losses, parameters, the ranks' weights
+                identical), the bf16 forward and both backward kernels
+                launched on every rank and in the one-process run; the
+                1000-video gallery of the serve config embedded from two
+                loader shards and scored in two blocks of gallery rows, held
+                to [serve]'s embeddings and to one-process scoring of the same
+                embeddings (top-10 identical); one f32 tensor-parallel step
+                at mesh (1, 2) of ab_local_bf16.json's widths at depth 2
+                against the one-rank step. Times are of two processes sharing
+                one card and claim nothing about speed;
   7. train-ref — two deterministic train steps of the f32 smoke config on
                 the card and on the CPU from the same weights and batches:
                 losses, step-1 gradients and parameters must agree;
@@ -370,6 +389,27 @@ EX_SEED = 10
 EX_TOL_OBJECT = 1e-4
 EX_TOL_CONF = 1e-8
 EX_MAX_SWAP_SHARE = 5e-3
+# [dist]: two gloo ranks share the one card (NCCL refuses two ranks on one
+# device). Each spawned rank is killed after DIST_TIMEOUT s.
+DIST_TIMEOUT = 600
+DIST_ROWS = 64  # rows a rank in the data-parallel train steps (global 128)
+DIST_STEPS = 2
+# data parallel at full width against the one-process 128-row steps, bf16
+# towers and local loss: the ranks run their towers on 64 rows, so bf16
+# products may round differently (TOL_TRAIN's bf16 limit for the loss); an
+# Adam update is close to lr * sign(g), so where a gradient is within
+# rounding of zero an element may move the other way in the two runs: up to
+# 2 * ADAM_STEP_MAX * lr a step apart (at betas 0.9 / 0.999 no update of the
+# first two steps exceeds 1.0014 lr), and the mean |change| over the model
+# must stay within DIST_PARAM_MEAN * lr (read 0.0174 lr on an H100 80GB
+# HBM3 at 700 W)
+ADAM_STEP_MAX = 1.01
+DIST_LOSS_RTOL = TOL_TRAIN["bf16"]
+DIST_PARAM_MEAN = 0.05
+# tensor parallelism: one f32 step of ab_local_bf16.json's widths at depth
+# DIST_TP_DEPTH in each tower, mesh (1, 2), against the one-rank step:
+# f32 summation order only (TRAIN_REF_LOSS_RTOL, TRAIN_REF_PARAM)
+DIST_TP_DEPTH = 2
 
 
 def log(msg: str) -> None:
@@ -1611,15 +1651,24 @@ def _mode_peak(bf16: bool):
                                            f"f32 FFMA {PEAK_F32_FLOPS:.3g}/s")
 
 
-def _kernel_names(fn) -> list:
-    """Names of the CUDA kernels one call of fn launches, from the profiler."""
+def _kernel_names(fn, sessions: int = 3) -> list:
+    """Names of the CUDA kernels one call of fn launches, from the profiler.
+    A session that recorded no device kernel at all is opened again, up to
+    `sessions` times: on the card's torch 2.11.0+cu128 one such session
+    came back empty after six that saw every kernel (PR 11), which says
+    nothing of the kernels; the callers' checks of the names stand."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")})
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if str(getattr(e, "device_type", "")).endswith("CUDA")})
+        if names:
+            return names
+        log(f"[timing] profiler session {session} of {sessions} recorded no device kernel")
+    return names
 
 
 def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device):
@@ -2568,6 +2617,374 @@ def phase_timing(cat, device, tag: str = "serve"):
     return total
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_entry(fn, rank: int, world: int, port: int, backend: str, out: str, args) -> None:
+    """A spawned rank: torchrun's environment (every rank on card 0), the
+    process group joined with `backend`, fn's result saved for the parent."""
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    try:
+        from demovlp_tpu_torch.parallel.mesh import setup_distributed
+
+        setup_distributed(backend)
+        torch.save(fn(rank, *args), os.path.join(out, f"rank{rank}.pt"))
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _dist_spawn(tag: str, fn, world: int, backend: str, tmp: Path, *args) -> list:
+    """fn(rank, *args) on `world` spawned ranks; their results in rank
+    order. Fails the phase when a rank fails or outlives DIST_TIMEOUT."""
+    import multiprocessing as mp
+
+    out = tmp / f"dist_{tag}"
+    out.mkdir(parents=True, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_dist_entry, args=(fn, r, world, port, backend, str(out), args))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = t0 + DIST_TIMEOUT
+    for r, p in enumerate(procs):
+        p.join(max(1.0, deadline - time.perf_counter()))
+    bad = []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+            bad.append(f"rank {r} still running after {DIST_TIMEOUT} s")
+        elif p.exitcode != 0:
+            bad.append(f"rank {r} exited {p.exitcode}")
+    if bad:
+        fail(f"[dist] {tag}: " + "; ".join(bad))
+    log(f"[dist] {tag}: {world} {backend} rank(s) in {time.perf_counter() - t0:.1f}s")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _dist_nccl(rank: int, cfg_path: str, port: int) -> dict:
+    """NCCL at world size 1: the train CLI under torchrun's environment
+    (setup_distributed joins no group at one process, so the path is the
+    one-process path), then a world-1 NCCL group through which the layer's
+    collectives run: the (1, 1) mesh, the differentiable row gather and the
+    gradient sum."""
+    import torch.distributed as dist
+
+    from demovlp_tpu_torch.cli.train import run
+    from demovlp_tpu_torch.parallel.mesh import create_mesh, gather_rows, reduce_gradients
+
+    trainer = run(["-c", cfg_path])
+    res = {"losses": list(trainer.step_losses), "group_after_cli": dist.is_initialized(),
+           "mesh_after_cli": trainer.mesh is not None}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    mesh = create_mesh(1, "cuda")
+    x = torch.randn(4, 3, device="cuda", requires_grad=True)
+    y = gather_rows(x, dist.group.WORLD)
+    y.sum().backward()
+    lin = torch.nn.Linear(3, 2).cuda()
+    lin(x.detach()).sum().backward()
+    g = lin.weight.grad.clone()
+    reduce_gradients(lin.parameters(), dist.group.WORLD)
+    torch.cuda.synchronize()
+    res.update(mesh=str(mesh), backend=dist.get_backend(), gather=bool(torch.equal(y, x)),
+               gather_grad=bool(torch.equal(x.grad, torch.ones_like(x))),
+               reduce=bool(torch.equal(g, lin.weight.grad)))
+    return res
+
+
+def _dist_batches(cfg: dict, index: int, count: int) -> list:
+    """The first DIST_STEPS epoch-1 train batches (host arrays) of loader
+    shard `index` of `count`."""
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.data.loader import MultiDistTextObjectVideoDataLoader
+    from demovlp_tpu_torch.train.steps import prepare_batch
+
+    dl = MultiDistTextObjectVideoDataLoader(**{**cfg["data_loader"]["args"],
+                                               "process_index": index, "process_count": count})
+    dl.set_epoch(1)
+    tok = common.build_tokenizer_from_config(cfg)
+    return [prepare_batch(data, tok) for _, data in zip(range(DIST_STEPS), dl)]
+
+
+def _dist_steps(cfg: dict, device, mesh, batches) -> dict:
+    """DIST_STEPS deterministic train steps from the seeded init on `batches`:
+    losses, the kernels' launches, the parameters after the last step."""
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+    from demovlp_tpu_torch.train.steps import batch_to_device, make_retrieval_train_step
+
+    model = common.build_train_model(cfg, device, seed=0, mesh=mesh)
+    opt = common.build_optimizer(cfg, model.parameters())
+    step = make_retrieval_train_step(model, common.build_loss(cfg), opt, deterministic=True,
+                                     mesh=mesh)
+    transfer = torch.bfloat16 if common.compute_dtype(cfg) == torch.bfloat16 else None
+    lr = float(cfg["optimizer"]["args"]["lr"])
+    torch.cuda.synchronize()
+    xk.reset_launch_counts()
+    losses, times = [], []
+    for arrays in batches:
+        t0 = time.perf_counter()
+        m = step(batch_to_device(arrays, device, transfer), lr)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    return {"model": model, "losses": losses, "launches": dict(xk.LAUNCHES), "times": times,
+            "lr": lr}
+
+
+def _params_against(got, want, lr: float, steps: int) -> dict:
+    """Parameter differences: the largest (at most 2 lr + slack anywhere),
+    the mean over every element in units of lr, the share beyond the
+    tight tolerance."""
+    tol = TRAIN_REF_PARAM
+    worst, total_abs, loose, total = 0.0, 0.0, 0, 0
+    for name, w in want.items():
+        v = got[name].float().cpu()
+        w = w.float().cpu()
+        err = (v - w).abs()
+        worst = max(worst, float(err.max()))
+        total_abs += float(err.double().sum())
+        loose += int((err > tol["atol"] + tol["rtol"] * w.abs()).sum())
+        total += err.numel()
+    return {"worst": worst, "mean_over_lr": total_abs / total / lr,
+            "loose_share": loose / total,
+            "bound": 2 * ADAM_STEP_MAX * lr * steps + tol["atol"]}
+
+
+def _dist_train(rank: int, cfg: dict, model_axis: int, steps: int) -> dict:
+    """`steps` deterministic train steps on this rank's loader shard over a
+    (data, model_axis) mesh: data parallel, tensor parallel, or both. Rank
+    0 then runs the one-process steps on the concatenated global batches
+    (every data rank's shard in rank order) and compares, the TP weights
+    gathered whole."""
+    from demovlp_tpu_torch.parallel.mesh import (create_mesh, data_coords, host_allgather,
+                                                 local_rank)
+    from demovlp_tpu_torch.parallel.tp import full_state_dict
+
+    device = torch.device("cuda", local_rank())
+    mesh = create_mesh(model_axis, "cuda")
+    d, n = data_coords(mesh)
+    run = _dist_steps(cfg, device, mesh, _dist_batches(cfg, d, n)[:steps])
+    split = sum(hasattr(p, "placements") for p in run["model"].parameters())
+    params = full_state_dict(run["model"])
+    sums = host_allgather(np.asarray([[float(v.double().sum()) for v in params.values()]]))
+    res = {"losses": run["losses"], "launches": run["launches"], "times": run["times"],
+           "split": split, "ranks_equal": bool((sums == sums[:1]).all())}
+    if rank == 0:
+        del run
+        torch.cuda.empty_cache()
+        shards = [_dist_batches(cfg, r, n)[:steps] for r in range(n)]
+        glob = [{k: np.concatenate([s[i][k] for s in shards]) for k in shards[0][i]}
+                for i in range(steps)]
+        one = _dist_steps({**cfg, "mesh": {"model": 1}}, device, None, glob)
+        want = {name: p.detach() for name, p in one["model"].named_parameters()}
+        res.update(ref_losses=one["losses"], ref_launches=one["launches"],
+                   ref_times=one["times"],
+                   params=_params_against({k: params[k] for k in want}, want, one["lr"],
+                                          steps))
+    return res
+
+
+def _dist_eval(rank: int, out: str) -> dict:
+    """The 1000-video gallery of the serve config over the ranks: each
+    embeds its loader shard and scores its block of gallery rows through
+    the f32 forward; rank 0 keeps the gathered embeddings for the parent."""
+    from demovlp_tpu_torch import serve
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+    from demovlp_tpu_torch.parallel.mesh import create_mesh, local_rank
+
+    cfg = json.loads(SERVE_CFG.read_text())
+    device = torch.device("cuda", local_rank())
+    mesh = create_mesh(1, "cuda")
+    model = common.build_serving_model(cfg, device, None, 0, mesh=mesh)
+    dl = common.init_dataloaders(cfg, val_split="test", train=False, mesh=mesh)[1][0]
+    t0 = time.perf_counter()
+    cat, meta = serve.embed_loader(serve.make_embed_step(model), dl,
+                                   common.build_tokenizer_from_config(cfg), device,
+                                   transfer_dtype=torch.bfloat16, mesh=mesh)
+    embed_s = time.perf_counter() - t0
+    xk.reset_launch_counts()
+    t0 = time.perf_counter()
+    sims = serve.combined_sims(cat, device, mesh=mesh, **common.local_score_args(cfg))
+    sims_s = time.perf_counter() - t0
+    if rank == 0:
+        np.savez(os.path.join(out, "dist_cat.npz"), **cat)
+    return {"sims": sims, "launches": dict(xk.LAUNCHES), "embed_s": embed_s, "sims_s": sims_s,
+            "n_local": len(dl) * dl.batch_size, "paths": meta["paths"]}
+
+
+def _tp_config(rows: int) -> dict:
+    """ab_local_bf16.json's widths at depth DIST_TP_DEPTH in f32, mesh.model
+    2, `rows` rows a data rank."""
+    cfg = json.loads(TRAIN_CFG.read_text())
+    args = cfg["arch"]["args"]
+    args["object_params"]["depth"] = DIST_TP_DEPTH
+    args["text_params"]["config"] = {"n_layers": DIST_TP_DEPTH}
+    cfg["precision"]["compute"] = "float32"
+    cfg["loss"]["args"]["local_dtype"] = "float32"
+    cfg["mesh"]["model"] = 2
+    cfg["data_loader"]["args"]["batch_size"] = rows
+    return cfg
+
+
+def check_dist_dp(ranks: list, where: str) -> None:
+    """Data-parallel steps (ranks[0] carries the one-process comparison):
+    every rank's and the one-process run's kernels launched each step,
+    losses within DIST_LOSS_RTOL, parameters as DIST_PARAM_MEAN says, the
+    ranks' weights identical."""
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    r0, n = ranks[0], len(ranks)
+    steps = len(r0["losses"])
+    for r, res in enumerate(ranks):
+        log(f"[dist] dp rank {r}: losses {res['losses']}, step s "
+            f"{[round(t, 3) for t in res['times']]} ({where}), launches {res['launches']}")
+    p = r0["params"]
+    log(f"[dist] dp one process, the {n} ranks' rows together: losses {r0['ref_losses']}, "
+        f"step s {[round(t, 3) for t in r0['ref_times']]}, launches {r0['ref_launches']}")
+    log(f"[dist] dp vs one process after {steps} steps: parameters max |diff| "
+        f"{p['worst']:.3e} (limit {p['bound']:.3e}), mean |diff| {p['mean_over_lr']:.4f} lr "
+        f"(limit {DIST_PARAM_MEAN} lr), share beyond {TRAIN_REF_PARAM['atol']:g} + "
+        f"{TRAIN_REF_PARAM['rtol']:g}|p| {p['loose_share']:.3e}; ranks identical "
+        f"{r0['ranks_equal']}")
+    kernels = (xk.KERNEL_BF16, xk.KERNEL_DQ, xk.KERNEL_DC)
+    for launches, what in [(res["launches"], f"rank {r}") for r, res in enumerate(ranks)] + [
+            (r0["ref_launches"], "one process")]:
+        if any(launches[k] < steps for k in kernels):
+            fail(f"[dist] dp {what} did not launch the bf16 forward and both backward "
+                 f"kernels each step: {launches}")
+    for res in ranks:
+        for got, want in zip(res["losses"], r0["ref_losses"]):
+            if not np.isfinite(got) or abs(got - want) > DIST_LOSS_RTOL * abs(want):
+                fail(f"[dist] dp loss {got} vs one process {want}")
+    if not r0["ranks_equal"] or p["worst"] > p["bound"] or p["mean_over_lr"] > DIST_PARAM_MEAN:
+        fail(f"[dist] dp parameters disagree with the one-process steps: {p}")
+
+
+def check_dist_tp(ranks: list, where: str) -> None:
+    """Tensor-parallel steps (ranks[0] carries the one-rank comparison):
+    something split on every rank, the f32 kernels launched, losses and
+    parameters within TRAIN_REF's f32 limits, the ranks' weights identical."""
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    r0 = ranks[0]
+    p = r0["params"]
+    for r, res in enumerate(ranks):
+        log(f"[dist] tp rank {r}: loss {res['losses']}, step s "
+            f"{[round(t, 3) for t in res['times']]} ({where}), {res['split']} parameter "
+            f"tensors split, launches {res['launches']}")
+        for got, want in zip(res["losses"], r0["ref_losses"]):
+            if not np.isfinite(got) or abs(got - want) > TRAIN_REF_LOSS_RTOL * abs(want) + 1e-6:
+                fail(f"[dist] tp loss {got} vs one rank {want}")
+        if res["split"] == 0 or min(res["launches"][k] for k in (xk.KERNEL, xk.KERNEL_DQ,
+                                                                 xk.KERNEL_DC)) < 1:
+            fail(f"[dist] tp rank {r}: nothing split or a kernel not launched: {res}")
+    log(f"[dist] tp vs one rank (depth {DIST_TP_DEPTH}, f32): loss {r0['ref_losses']}; "
+        f"parameters max |diff| {p['worst']:.3e} (limit {p['bound']:.3e}), share beyond "
+        f"{TRAIN_REF_PARAM['atol']:g} + {TRAIN_REF_PARAM['rtol']:g}|p| {p['loose_share']:.3e} "
+        f"(limit {TRAIN_REF_PARAM['max_loose_share']:g}); ranks identical {r0['ranks_equal']}")
+    if (not r0["ranks_equal"] or p["worst"] > p["bound"]
+            or p["loose_share"] > TRAIN_REF_PARAM["max_loose_share"]):
+        fail(f"[dist] tp parameters disagree with the one-rank step: {p}")
+
+
+def check_dist_eval(ranks: list, dcat: dict, device, where: str) -> None:
+    """The sharded eval: each rank's gathered sims (where it returned them)
+    against one-process scoring of the gathered embeddings `dcat` on this
+    card, within TOL_SMOOTH and with identical top-10."""
+    from demovlp_tpu_torch import serve
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    score = common.local_score_args(json.loads(SERVE_CFG.read_text()))
+    xk.reset_launch_counts()
+    want = serve.combined_sims(dcat, device, **score)
+    log(f"[dist] eval one-process scoring of the gathered embeddings: launches "
+        f"{dict(xk.LAUNCHES)}")
+    top = np.argsort(-want, axis=1)[:, :10]
+    for r, res in enumerate(ranks):
+        log(f"[dist] eval rank {r}: {res['n_local']} rows embedded in {res['embed_s']:.2f}s, "
+            f"sims in {res['sims_s']:.2f}s ({where}); launches {res['launches']}")
+        if res["launches"][xk.KERNEL] < 1:
+            fail(f"[dist] eval rank {r} launched no f32 forward")
+        if res.get("sims") is None:
+            continue
+        err = float(np.abs(res["sims"] - want).max())
+        same_top = bool(np.array_equal(np.argsort(-res["sims"], axis=1)[:, :10], top))
+        log(f"[dist] eval rank {r}: sims vs one process max |diff| {err:.3e} (limit "
+            f"{TOL_SMOOTH:g}), top-10 identical {same_top}")
+        if err > TOL_SMOOTH or not same_top or res["sims"].shape != want.shape:
+            fail(f"[dist] eval rank {r}: sims disagree with one process ({err}, top-10 "
+                 f"{same_top})")
+
+
+def dist_train_config(rows: int) -> dict:
+    """ab_local_bf16.json at `rows` rows a data rank."""
+    cfg = json.loads(TRAIN_CFG.read_text())
+    cfg["data_loader"]["args"]["batch_size"] = rows
+    return cfg
+
+
+def phase_dist(tmp: Path, device, cat) -> None:
+    """[dist]: (a) NCCL at world size 1; (b) two gloo ranks on the one card:
+    data-parallel train steps at full width, the sharded eval of the
+    1000-video gallery, one tensor-parallel step. Times are of two
+    processes sharing one card and claim nothing about speed."""
+    torch.cuda.empty_cache()
+    smoke = json.loads(SMOKE_CFG.read_text())
+    smoke["trainer"].update(epochs=1, save_dir=str(tmp / "dist_nccl"))
+    smoke_path = tmp / "dist_smoke.json"
+    smoke_path.write_text(json.dumps(smoke))
+    (a,) = _dist_spawn("nccl", _dist_nccl, 1, "nccl", tmp, str(smoke_path), _free_port())
+    log(f"[dist] nccl world size 1: train CLI under torchrun's environment, {len(a['losses'])} "
+        f"steps, losses {[round(v, 5) for v in a['losses']]}, a process group after it: "
+        f"{a['group_after_cli']}; then {a['backend']} {a['mesh']}: row gather {a['gather']} "
+        f"(its gradient {a['gather_grad']}), gradient sum {a['reduce']}")
+    if a["group_after_cli"] or a["mesh_after_cli"] or not a["losses"]:
+        fail("[dist] the one-process train CLI under torchrun's environment made a group or "
+             "a mesh, or took no step")
+    if not np.isfinite(a["losses"]).all() or not (a["gather"] and a["gather_grad"]
+                                                  and a["reduce"]) or a["backend"] != "nccl":
+        fail(f"[dist] nccl at world size 1: {a}")
+
+    where = "two processes on one card"
+    check_dist_dp(_dist_spawn("dp-train", _dist_train, 2, "gloo", tmp,
+                              dist_train_config(DIST_ROWS), 1, DIST_STEPS), where)
+
+    # _dist_spawn makes tmp / "dist_eval", where rank 0 leaves its embeddings
+    ranks = _dist_spawn("eval", _dist_eval, 2, "gloo", tmp, str(tmp / "dist_eval"))
+    with np.load(tmp / "dist_eval" / "dist_cat.npz") as z:
+        dcat = {k: z[k] for k in z.files}
+    check_dist_eval(ranks, dcat, device, where)
+    emb_err = max(float(np.abs(dcat[k] - cat[k]).max() / max(np.abs(cat[k]).max(), 1e-30))
+                  for k in ("g_t", "g_o", "l_t", "l_o"))
+    masks_equal = all(np.array_equal(dcat[k], cat[k]) for k in ("o_mask", "t_mask", "t_len"))
+    log(f"[dist] eval: gathered embeddings vs [serve]'s one-process run: max |err| / max "
+        f"|value| {emb_err:.3e} (limit {TOL_BF16_CARD:g}), masks identical {masks_equal}")
+    if emb_err > TOL_BF16_CARD or not masks_equal:
+        fail("[dist] the gathered embeddings disagree with [serve]'s")
+
+    check_dist_tp(_dist_spawn("tp", _dist_train, 2, "gloo", tmp, _tp_config(DIST_ROWS), 2, 1),
+                  where)
+
+
 def main() -> None:
     kind, card = phase_device()
     from demovlp_tpu_torch.device import resolve_device
@@ -2595,6 +3012,7 @@ def main() -> None:
         cat, serve_launches = phase_serve(tmp)
         phase_bf16(tmp, cat)
         query = phase_query(tmp, cat, device)
+        phase_dist(tmp, device, cat)
         phase_train_ref(device)
         trainer, train_launches = phase_train(tmp, device)
         phase_record(tmp, trainer)

@@ -1,7 +1,15 @@
-"""Entry-point assembly: config -> model, tokenizer, loaders, loss, metrics,
-optimizer, local-score knobs, the scalar writer and the retrieval
-visualizer (counterpart of demovlp_tpu/cli/common.py).
-A plain name -> constructor table stands in for the JAX package's registry."""
+"""Entry-point assembly: config -> process group and mesh, model,
+tokenizer, loaders, loss, metrics, optimizer, local-score knobs, the
+scalar writer and the retrieval visualizer (counterpart of
+demovlp_tpu/cli/common.py). A plain name -> constructor table stands in
+for the JAX package's registry.
+
+Every CLI runs one process per card under torchrun
+(`torchrun --nproc-per-node N -m demovlp_tpu_torch.cli.train -c <cfg>`):
+`setup_parallel` joins the process group (nccl on the card, gloo with
+`--device cpu`) and builds the (data, model) mesh from `mesh.model`, which
+must divide the world size; at one process there is no group and no
+mesh."""
 from __future__ import annotations
 
 import copy
@@ -10,7 +18,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from demovlp_tpu_torch.config import (apply_overrides, build_train_argparser,
-                                      make_run_dir, read_config, run_log_dir, run_web_dir)
+                                      make_run_dir, read_config, run_log_dir, run_stamp,
+                                      run_web_dir)
 from demovlp_tpu_torch.convert.from_jax import load_reference_state_dict
 from demovlp_tpu_torch.convert.torch_import import load_pretrained
 from demovlp_tpu_torch.data.loader import MultiDistTextObjectVideoDataLoader
@@ -22,6 +31,10 @@ from demovlp_tpu_torch.metrics import qa as qa_metrics
 from demovlp_tpu_torch.metrics import retrieval as retrieval_metrics
 from demovlp_tpu_torch.models import (DistilBertConfig, ObjectMCRelation, ObjectQARelation,
                                       ObjectRelation)
+from demovlp_tpu_torch.parallel.mesh import (create_mesh, data_coords, host_allgather_pylist,
+                                             is_main_process, process_count,
+                                             setup_distributed)
+from demovlp_tpu_torch.parallel.tp import apply_tp
 from demovlp_tpu_torch.train.checkpoint import find_latest_checkpoint
 from demovlp_tpu_torch.train.optim import AdamW
 from demovlp_tpu_torch.train.steps import parse_text_buckets
@@ -29,6 +42,31 @@ from demovlp_tpu_torch.utils.visualizer import RetrievalVis
 from demovlp_tpu_torch.utils.writer import MetricsWriter
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def mesh_model(config: Dict[str, Any]) -> int:
+    """`mesh.model`, checked: `optimizer.args.pack_small` is a
+    data-parallel knob and is refused with tensor parallelism, as JAX
+    cli/common.py:127-139 refuses it."""
+    model = int((config.get("mesh", {}) or {}).get("model", 1))
+    if model > 1 and (config.get("optimizer", {}).get("args", {}) or {}).get("pack_small"):
+        raise ValueError("optimizer.args.pack_small is a data-parallel knob and is not "
+                         "supported with tensor parallelism (mesh.model > 1); remove one.")
+    return model
+
+
+def setup_parallel(device_arg, config: Dict[str, Any]):
+    """(device, mesh) of this process: the local rank's card (or the CPU
+    when asked), the process group joined with nccl (gloo on the CPU), and
+    the (data, model) mesh from `mesh.model`, or None at one process.
+    `mesh.model` must divide the world size (JAX parallel/mesh.py:69-71)."""
+    device = resolve_device(device_arg)
+    model = mesh_model(config)
+    setup_distributed("gloo" if device.type == "cpu" else "nccl")
+    world = process_count()
+    if model < 1 or world % model:
+        raise ValueError(f"mesh.model={model} does not divide the world size {world}")
+    return device, (create_mesh(model, device.type) if world > 1 else None)
 
 
 def compute_dtype(config: Dict[str, Any]) -> torch.dtype:
@@ -92,24 +130,27 @@ def build_model(config: Dict[str, Any]) -> ObjectRelation:
 
 
 def build_serving_model(config: Dict[str, Any], device: torch.device,
-                        weights: Optional[str] = None, seed: int = 0) -> ObjectRelation:
+                        weights: Optional[str] = None, seed: int = 0,
+                        mesh=None) -> ObjectRelation:
     """The model on `device`, in eval mode: weights from a reference-schema
-    `.pth` when given (strict load), else seeded random init."""
+    `.pth` when given (strict load), else seeded random init; split over
+    the mesh's model axis where it has more than one rank."""
     model = build_model(config)
     if weights:
         model.load_state_dict(load_reference_state_dict(weights), strict=True)
     else:
         model.reset_parameters(torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return apply_tp(model.to(device), mesh).eval()
 
 
 def build_train_model(config: Dict[str, Any], device: torch.device,
-                      seed: int = 0) -> ObjectRelation:
+                      seed: int = 0, mesh=None) -> ObjectRelation:
     """The model on `device`: seeded random init, then the weights of
     `arch.args.load_checkpoint` when it names a reference-schema `.pth`,
     its temporal embed resized to `object_params.num_frames` per
     `arch.args.load_temporal_fix` (default "zeros"), loaded strictly
-    (convert/torch_import.py)."""
+    (convert/torch_import.py); then split over the mesh's model axis
+    (parallel/tp.py) where it has more than one rank."""
     model = build_model(config)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     args = config["arch"].get("args", {})
@@ -117,7 +158,7 @@ def build_train_model(config: Dict[str, Any], device: torch.device,
     if ckpt:
         load_pretrained(model, ckpt, int(args.get("object_params", {}).get("num_frames", 4)),
                         args.get("load_temporal_fix"))
-    return model.to(device)
+    return apply_tp(model.to(device), mesh)
 
 
 _LOSSES = {cls.__name__: cls for cls in (GlobalLocalLoss, NormSoftmaxLoss, RWALoss,
@@ -140,6 +181,7 @@ def build_metrics(config: Dict[str, Any]) -> List:
 
 
 def build_optimizer(config: Dict[str, Any], params) -> AdamW:
+    mesh_model(config)
     section = config["optimizer"]
     if section["type"] != "AdamW":
         raise NotImplementedError(f"optimizer {section['type']!r} is not ported")
@@ -159,20 +201,23 @@ def _loader(sec: Dict[str, Any], **override) -> MultiDistTextObjectVideoDataLoad
 
 
 def init_dataloaders(config: Dict[str, Any], val_split: str = "val",
-                     train: bool = True) -> Tuple[List, List]:
+                     train: bool = True, mesh=None) -> Tuple[List, List]:
     """Train loaders from the config (one section or a list), and val
     loaders with the reference's swap rules: split -> `val_split`, no
     shuffling, CC3M subsampled to 1%, LSMDC multiple choice on split 'val'
     with batch 1. Train loaders group lengths (where `length_grouped` is
     set) by the trainer's `text_buckets`. train=False builds no train
-    loader."""
+    loader. Each loader reads the shard of this process's data rank."""
     section = config["data_loader"]
     sections = section if isinstance(section, list) else [section]
     buckets = parse_text_buckets(config.get("trainer", {}))
-    train_loaders = [_loader(sec, text_buckets=buckets) for sec in sections] if train else []
+    rank, ranks = data_coords(mesh)
+    shard = {"process_index": rank, "process_count": ranks}
+    train_loaders = ([_loader(sec, text_buckets=buckets, **shard) for sec in sections]
+                     if train else [])
     val_loaders = []
     for sec in sections:
-        override = {"split": val_split, "shuffle": False}
+        override = {"split": val_split, "shuffle": False, **shard}
         name = sec.get("args", {}).get("dataset_name", "")
         if name == "ConceptualCaptions3MObjectSelect":
             override["subsample"] = 0.01
@@ -218,13 +263,16 @@ def run_trainer(trainer_cls, description: str, val_split: str,
     (closed when the run ends), its log to info.log beside them. Returns
     the trainer with its `final_log`."""
     args = build_train_argparser(description).parse_args(argv)
-    device = resolve_device(args.device)
     config = apply_overrides(read_config(args.config), args)
+    device, mesh = setup_parallel(args.device, config)
     torch.manual_seed(args.seed)  # dropout
     cfg_trainer = config["trainer"]
-    save_dir = make_run_dir(config)
-    train_loaders, val_loaders = init_dataloaders(config, val_split=val_split)
-    model = build_train_model(config, device, seed=args.seed)
+    main = is_main_process()
+    # one stamp for the run: rank 0's
+    stamp = host_allgather_pylist([run_stamp()])[0] if process_count() > 1 else run_stamp()
+    save_dir = make_run_dir(config, stamp, main)
+    train_loaders, val_loaders = init_dataloaders(config, val_split=val_split, mesh=mesh)
+    model = build_train_model(config, device, seed=args.seed, mesh=mesh)
     bf16 = compute_dtype(config) == torch.bfloat16
     trainer = trainer_cls(
         model, build_loss(config), build_metrics(config),
@@ -235,8 +283,9 @@ def run_trainer(trainer_cls, description: str, val_split: str,
         transfer_dtype=torch.bfloat16 if bf16 else None, fence_steps=fence_steps,
         schedule=args.schedule, learning_rate1=args.learning_rate1,
         lr_mode=cfg_trainer.get("lr_mode", "reference"), rng_seed=args.seed,
-        writer=MetricsWriter(run_log_dir(save_dir)),
-        visualizer=build_visualizer(config, run_web_dir(save_dir)),
+        writer=MetricsWriter(run_log_dir(save_dir)) if main else None,
+        visualizer=build_visualizer(config, run_web_dir(save_dir)) if main else None,
+        mesh=mesh,
     )
     try:
         resume = args.resume or cfg_trainer.get("resume")
@@ -246,5 +295,6 @@ def run_trainer(trainer_cls, description: str, val_split: str,
             trainer.resume(resume)
         trainer.final_log = trainer.train()
     finally:
-        trainer.writer.close()
+        if trainer.writer is not None:
+            trainer.writer.close()
     return trainer

@@ -23,9 +23,9 @@ import torch
 
 from demovlp_tpu_torch import serve
 from demovlp_tpu_torch.cli.common import (build_serving_model, build_tokenizer_from_config,
-                                          compute_dtype, init_dataloaders)
+                                          compute_dtype, init_dataloaders, setup_parallel)
 from demovlp_tpu_torch.config import build_argparser, read_config
-from demovlp_tpu_torch.device import resolve_device
+from demovlp_tpu_torch.parallel.mesh import is_main_process
 from demovlp_tpu_torch.train.steps import make_qa_eval_step
 
 
@@ -39,11 +39,11 @@ def _parser():
 def run(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     """Run the CLI; returns one record per loader: {results, path, seconds}."""
     args = _parser().parse_args(argv)
-    device = resolve_device(args.device)
     config = read_config(args.config)
-    model = build_serving_model(config, device, args.resume, args.seed)
+    device, mesh = setup_parallel(args.device, config)
+    model = build_serving_model(config, device, args.resume, args.seed, mesh=mesh)
     tokenizer = build_tokenizer_from_config(config)
-    loaders = init_dataloaders(config, val_split=args.split, train=False)[1]
+    loaders = init_dataloaders(config, val_split=args.split, train=False, mesh=mesh)[1]
     transfer = torch.bfloat16 if compute_dtype(config) == torch.bfloat16 else None
     eval_step = make_qa_eval_step(model)
     out_path = Path(args.output)
@@ -52,12 +52,13 @@ def run(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
         t0 = time.perf_counter()
         results = serve.predict_qa(eval_step, dl, tokenizer, device,
                                    label2ans=getattr(dl.dataset, "label2ans", None),
-                                   transfer_dtype=transfer)
+                                   transfer_dtype=transfer, mesh=mesh)
         seconds = time.perf_counter() - t0
         path = out_path if len(loaders) == 1 else out_path.with_stem(f"{out_path.stem}_{i}")
-        path.write_text(json.dumps(results, indent=1))
-        print(f"[predict_qa] wrote {len(results)} predictions -> {path} in {seconds:.3f}s "
-              f"({len(results) / seconds:.1f} questions/s)")
+        if is_main_process():
+            path.write_text(json.dumps(results, indent=1))
+            print(f"[predict_qa] wrote {len(results)} predictions -> {path} in {seconds:.3f}s "
+                  f"({len(results) / seconds:.1f} questions/s)")
         records.append({"results": results, "path": path, "seconds": seconds})
     return records
 

@@ -24,9 +24,9 @@ from typing import Any, Dict, Optional, Sequence
 
 from demovlp_tpu_torch import serve
 from demovlp_tpu_torch.cli.common import (build_serving_model, build_tokenizer_from_config,
-                                          local_score_args)
+                                          local_score_args, setup_parallel)
 from demovlp_tpu_torch.config import build_argparser, read_config
-from demovlp_tpu_torch.device import resolve_device
+from demovlp_tpu_torch.parallel.mesh import is_main_process
 
 
 def _parser():
@@ -49,9 +49,9 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     if line.strip()]
     if not queries:
         parser.error("no queries: pass --query and/or --queries-file")
-    device = resolve_device(args.device)
     config = read_config(args.config)
-    model = build_serving_model(config, device, args.resume, args.seed)
+    device, mesh = setup_parallel(args.device, config)
+    model = build_serving_model(config, device, args.resume, args.seed, mesh=mesh)
     tokenizer = build_tokenizer_from_config(config)
     gallery, gallery_meta = serve.load_index(args.index)
     score = local_score_args(config)
@@ -60,8 +60,10 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     results, sims = serve.query_retrieval(
         serve.make_text_embed_step(model), queries, tokenizer, gallery, device, k=args.topk,
         mscoco_dedup=str(config["name"]).startswith("MSCOCO"),
-        gallery_meta=gallery_meta if "paths" in gallery_meta else None, **score)
+        gallery_meta=gallery_meta if "paths" in gallery_meta else None, mesh=mesh, **score)
     seconds = time.perf_counter() - t0
+    if not is_main_process():
+        return {"results": results, "sims": sims, "seconds": seconds}
     print(f"[query] {len(queries)} queries x {gallery['g_o'].shape[0]} gallery videos in "
           f"{seconds:.3f}s")
     if args.output:

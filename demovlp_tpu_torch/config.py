@@ -69,13 +69,20 @@ def apply_overrides(config: Dict[str, Any], args: argparse.Namespace) -> Dict[st
     return config
 
 
-def make_run_dir(config: Dict[str, Any]) -> Path:
+def run_stamp() -> str:
+    """The run's directory stamp: $DEMOVLP_RUN_ID, else the time."""
+    return os.environ.get("DEMOVLP_RUN_ID", "") or datetime.now().strftime(r"%m%d_%H%M%S")
+
+
+def make_run_dir(config: Dict[str, Any], stamp: str = "", main: bool = True) -> Path:
     """The run's checkpoint directory, created, with config.json in it; its
     log and web directories (`run_log_dir`, `run_web_dir`) are created too,
-    and the root logger writes the log directory's info.log."""
-    stamp = os.environ.get("DEMOVLP_RUN_ID", "") or datetime.now().strftime(r"%m%d_%H%M%S")
+    and the root logger writes the log directory's info.log. Only the main
+    process (rank 0) writes: the others get the path."""
     root = Path(config.get("trainer", {}).get("save_dir", "exps"))
-    run_dir = root / "models" / config.get("name", "exp") / stamp
+    run_dir = root / "models" / config.get("name", "exp") / (stamp or run_stamp())
+    if not main:
+        return run_dir
     run_dir.mkdir(parents=True, exist_ok=True)
     (run_dir / "config.json").write_text(json.dumps(config, indent=2))
     run_web_dir(run_dir).mkdir(parents=True, exist_ok=True)

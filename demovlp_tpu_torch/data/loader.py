@@ -1,5 +1,6 @@
-"""Data loader (copy of demovlp_tpu/data/loader.py), one process
-(`process_index` 0 of `process_count` 1, passed explicitly).
+"""Data loader (copy of demovlp_tpu/data/loader.py): each process reads
+its shard (`process_index` of `process_count`; by default this process of
+the torch.distributed world, parallel/mesh.py).
 
 Train loaders shuffle with the permutation
 `default_rng(SeedSequence([seed, epoch])).permutation(n)` and drop the last
@@ -19,7 +20,14 @@ caption-length class (the smallest of the trainer's `text_buckets`, else
 of `DEFAULT_TEXT_BUCKETS`, that holds the word count + 2 for [CLS] and
 [SEP]), and the batch order is then shuffled with
 `SeedSequence([seed, epoch, 1])`. The JAX loader's "sort" mode (kept there
-for measurement only) and multi-process sharding are not ported.
+for measurement only) is not ported.
+
+Shards (JAX loader.py:165-210): a train loader truncates the epoch's
+permutation to `per_process * P`, length-groups that global order (where
+asked), then takes every P-th index from its own; an eval loader takes a
+contiguous ceil(n / P) share, the tail wrapped around cyclically, and
+its batches carry `sample_valid` flags (0 on the wrapped duplicates)
+where the shares had to be padded.
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ from demovlp_tpu_torch.data import native
 from demovlp_tpu_torch.data.datasets import RegionDataset, dataset_object_loader
 from demovlp_tpu_torch.data.regions import REGION_DIM
 from demovlp_tpu_torch.data.transforms import init_transform_dict
+from demovlp_tpu_torch.parallel.mesh import process_count as _process_count
+from demovlp_tpu_torch.parallel.mesh import process_index as _process_index
 
 _PREFETCH = 2  # batches assembled ahead of the consumer
 # [CLS] + [SEP]: the margin between the word-count length proxy and the
@@ -70,11 +80,14 @@ class RegionDataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, drop_last: bool = False, seed: int = 0,
-                 process_index: int = 0, process_count: int = 1,
+                 process_index: Optional[int] = None, process_count: Optional[int] = None,
                  length_grouped: bool = False,
                  text_buckets: Optional[Sequence[int]] = None):
-        if (process_index, process_count) != (0, 1):
-            raise NotImplementedError("multi-process loaders are not ported")
+        if process_index is None or process_count is None:
+            process_index, process_count = _process_index(), _process_count()
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} of {process_count}")
+        self.process_index, self.process_count = process_index, process_count
         if length_grouped not in (False, True):
             raise NotImplementedError(f"length_grouped={length_grouped!r} is not ported")
         self.length_grouped = bool(length_grouped and shuffle and drop_last)
@@ -93,8 +106,11 @@ class RegionDataLoader:
         self.epoch = epoch
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        n, p = len(self.dataset), self.process_count
+        if self.drop_last:
+            return n // p // self.batch_size
+        share = -(-n // p)
+        return -(-share // self.batch_size)
 
     def _fetch(self, idx: int) -> Dict[str, Any]:
         return self.dataset.get_item(int(idx), self._rng(idx))
@@ -155,26 +171,49 @@ class RegionDataLoader:
         cls = np.searchsorted(buckets, lens[order] + _TOKENIZER_SPECIALS, side="left")
         return np.concatenate([order[cls == c] for c in range(len(buckets) + 1)])
 
-    def batch_indices(self) -> List[np.ndarray]:
-        """This epoch's sample indices, batch by batch."""
-        n = len(self.dataset)
+    def host_indices(self):
+        """(this process's sample indices, their validity flags or None
+        where every index is a real sample), as JAX `_host_indices`."""
+        n, p = len(self.dataset), self.process_count
         if self.shuffle:
             rng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch]))
             order = rng.permutation(n)
         else:
             order = np.arange(n)
-        if self.length_grouped:
-            order = self._length_group(order)
-        nb = len(self)
-        batches = [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)]
-        if self.length_grouped and len(batches) > 1:
+        if self.drop_last:
+            per = n // p
+            if per == 0:
+                raise ValueError(f"dataset of {n} samples cannot be split over {p} processes")
+            order = order[:per * p]
+            if self.length_grouped:
+                # the global order is grouped before striding, so every
+                # process meets the same class boundaries at the same step
+                order = self._length_group(order)
+            return order[self.process_index::p], None
+        share = -(-n // p)
+        total = share * p
+        padded = np.resize(order, total) if total > n else order  # cyclic wrap
+        sl = slice(self.process_index * share, (self.process_index + 1) * share)
+        return padded[sl], (None if total == n else (np.arange(total) < n)[sl])
+
+    def _batches(self) -> List[tuple]:
+        """This epoch's (sample indices, validity flags or None), batch by
+        batch."""
+        order, valid = self.host_indices()
+        bs = self.batch_size
+        spans = [(i * bs, (i + 1) * bs) for i in range(len(self))]
+        if self.length_grouped and len(spans) > 1:
             # epoch position decorrelated from caption length
             brng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch, 1]))
-            batches = [batches[j] for j in brng.permutation(len(batches))]
-        return batches
+            spans = [spans[j] for j in brng.permutation(len(spans))]
+        return [(order[a:b], None if valid is None else valid[a:b]) for a, b in spans]
+
+    def batch_indices(self) -> List[np.ndarray]:
+        """This epoch's sample indices, batch by batch."""
+        return [idx for idx, _ in self._batches()]
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        batches = self.batch_indices()
+        batches = self._batches()
         reader = self._native_batch_reader()
         out_q: queue.Queue = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
@@ -192,11 +231,13 @@ class RegionDataLoader:
         def producer():
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-                    for idx in batches:
+                    for idx, flags in batches:
                         if reader is not None:
                             batch = self._fetch_batch_native(idx, reader, pool)
                         else:
                             batch = collate(list(pool.map(self._fetch, idx)))
+                        if flags is not None:
+                            batch["sample_valid"] = flags.astype(np.float32)
                         if not put(batch):
                             return
             except BaseException as exc:  # hand the failure to the consumer
@@ -235,7 +276,8 @@ class MultiDistTextObjectVideoDataLoader(RegionDataLoader):
                  sliding_window_stride: int = -1, reader: str = "cv2", batch_size: int = 1,
                  num_workers: int = 1, shuffle: bool = True, drop_last: Optional[bool] = None,
                  seed: int = 0, length_grouped: bool = False,
-                 text_buckets: Optional[Sequence[int]] = None):
+                 text_buckets: Optional[Sequence[int]] = None,
+                 process_index: Optional[int] = None, process_count: Optional[int] = None):
         dataset = dataset_object_loader(
             dataset_name, text_params=text_params, object_params=object_params,
             data_dir=data_dir, object_dir=object_dir, metadata_dir=metadata_dir, split=split,
@@ -248,4 +290,5 @@ class MultiDistTextObjectVideoDataLoader(RegionDataLoader):
             drop_last = split == "train"
         super().__init__(dataset, batch_size=batch_size, shuffle=shuffle,
                          num_workers=num_workers, drop_last=drop_last, seed=seed,
+                         process_index=process_index, process_count=process_count,
                          length_grouped=length_grouped, text_buckets=text_buckets)

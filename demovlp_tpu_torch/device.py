@@ -2,21 +2,30 @@
 
 Entry points run on the card unless the caller asks for the CPU. With no
 card and no CPU request they raise: nothing falls back to the CPU silently.
+Under torchrun the card is the local rank's, `cuda:LOCAL_RANK`, made the
+current device so that the kernels' launches go to it.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """`None` -> cuda (raises when no card is visible); else the named device."""
-    dev = torch.device(device if device is not None else "cuda")
+    """`None` -> cuda, `cuda:LOCAL_RANK` under torchrun (raises when no card
+    is visible); else the named device."""
+    if device is None:
+        device = f"cuda:{os.environ['LOCAL_RANK']}" if "LOCAL_RANK" in os.environ else "cuda"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' (--device cpu) "
             "to run on the CPU"
         )
+    if dev.index is not None:
+        torch.cuda.set_device(dev)
     # f32 paths are full f32: no TF32 in matmuls or convolutions, so the
     # card computes what the CPU reference computes
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -65,12 +65,11 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, add_bias: torch.Tensor) -> torch.Tensor:
         b, length, dim = x.shape
-        h = self.n_heads
-        hd = dim // h
+        hd = dim // self.n_heads
         cd = self.compute_dtype
 
-        def heads(t):  # (B, L, D) -> (B, h, L, hd)
-            return t.reshape(b, length, h, hd).transpose(1, 2)
+        def heads(t):  # (B, L, D) -> (B, h, L, hd); h is local under TP (parallel/tp.py)
+            return t.reshape(b, length, -1, hd).transpose(1, 2)
 
         scale = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(cd)
         q = heads(self.q_lin(x)) / scale
@@ -79,7 +78,7 @@ class MultiHeadSelfAttention(nn.Module):
         # f32 logits over compute-dtype operands (f32 accumulation)
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) + add_bias
         probs = self.dropout(torch.softmax(logits, dim=-1).to(cd))
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, length, dim)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, length, -1)
         return self.out_lin(out)
 
 

@@ -73,9 +73,14 @@ class VarAttention(nn.Module):
         f, k_ = frames, patches
         if n1 != 1 + f * k_:
             raise ValueError(f"token count {n1} != 1 + {f}*{k_}")
-        h = self.num_heads
-        hd = dim // h
-        q, k, v = self.qkv(x).split(dim, dim=-1)
+        hd = dim // self.num_heads
+        qkv = self.qkv(x)
+        # local head count: all heads, or this rank's share under the
+        # tensor-parallel plan (parallel/tp.py), whose qkv rows are q, k, v
+        # of this rank's heads
+        dl = qkv.shape[-1] // 3
+        h = dl // hd
+        q, k, v = qkv.split(dl, dim=-1)
         # (B, N1, D) -> (B, h, N1, hd)
         q, k, v = (t.reshape(b, n1, h, hd).transpose(1, 2) for t in (q, k, v))
         q = q * torch.tensor(hd ** -0.5, dtype=torch.float32).to(q.dtype)
@@ -87,7 +92,7 @@ class VarAttention(nn.Module):
             if not single_group:
                 bias = bias + _block_bias(mode, f, k_, x.device)
             out = _attention(q, k, v, bias)  # (B, h, N1, hd)
-            return self.proj(out.transpose(1, 2).reshape(b, n1, dim))
+            return self.proj(out.transpose(1, 2).reshape(b, n1, dl))
 
         # grouped form: CLS attends over everything
         cls_out = _attention(q[:, :, :1], k, v, mask[:, None, None, :])  # (B,h,1,hd)
@@ -119,7 +124,7 @@ class VarAttention(nn.Module):
             out = out.transpose(2, 3)  # (B, h, F, K, hd)
         out = out.reshape(b, h, f * k_, hd)
         out = torch.cat([cls_out, out], dim=2)  # (B, h, N1, hd)
-        return self.proj(out.transpose(1, 2).reshape(b, n1, dim))
+        return self.proj(out.transpose(1, 2).reshape(b, n1, dl))
 
 
 class SpaceTimeBlock(nn.Module):

@@ -1,5 +1,10 @@
-"""All-pairs local-similarity evaluation on one card (counterpart of
-demovlp_tpu/parallel/sharded_eval.py::sharded_local_sims, without a mesh).
+"""All-pairs local-similarity evaluation (counterpart of
+demovlp_tpu/parallel/sharded_eval.py::sharded_local_sims).
+
+With a mesh whose data axis has P > 1 ranks, data rank d scores the d-th
+contiguous ceil(n / P) block of gallery rows against every caption, and
+the blocks are gathered in rank order (JAX sharded_eval.py:74-82,189), so
+every rank returns the whole matrix.
 
 The gallery (video) axis is processed in host-level chunks of `chunk_rows`
 rows (default 4096) and the caption axis in blocks of `cap_chunk_rows`
@@ -17,6 +22,7 @@ import torch
 
 from demovlp_tpu_torch.device import to_device
 from demovlp_tpu_torch.ops.xattn_kernel import xattn_score_kernel
+from demovlp_tpu_torch.parallel.mesh import data_allgather, data_coords, host_allgather_ragged
 
 
 def _pad_rows(feats: np.ndarray, mask: np.ndarray, n: int):
@@ -34,11 +40,20 @@ def _pad_rows(feats: np.ndarray, mask: np.ndarray, n: int):
 def sharded_local_sims(img_feats, lang_feats, img_mask, lang_mask, *,
                        device, lambda_softmax: float = 20.0,
                        focal_type: str = "prob", chunk_rows: int = 4096,
-                       cap_chunk_rows: int = 8192) -> np.ndarray:
+                       cap_chunk_rows: int = 8192, mesh=None) -> np.ndarray:
     """(n_videos, n_texts) local similarity matrix as f32 numpy.
 
     img_feats (Ni, R, D), lang_feats (Nc, W, D), additive masks (Ni, R) and
     (Nc, W), as host arrays."""
+    rank, ranks = data_coords(mesh)
+    if ranks > 1:
+        share = -(-len(img_feats) // ranks)
+        rows = slice(rank * share, (rank + 1) * share)
+        block = sharded_local_sims(img_feats[rows], lang_feats, img_mask[rows], lang_mask,
+                                   device=device, lambda_softmax=lambda_softmax,
+                                   focal_type=focal_type, chunk_rows=chunk_rows,
+                                   cap_chunk_rows=cap_chunk_rows)
+        return host_allgather_ragged(block, allgather=data_allgather(mesh))
     device = torch.device(device)
     img_feats = np.asarray(img_feats, dtype=np.float32)
     lang_feats = np.asarray(lang_feats, dtype=np.float32)

@@ -15,6 +15,15 @@ text) and transposed onto (query, gallery) (PARITY.md #16).
 One departure, on bf16 models only: embeddings are returned as f32 (bf16
 values upcast exactly, since numpy has no bf16) and the global cosine
 sims are computed in f32, where the JAX path keeps them in bf16.
+
+Across processes (a `mesh` whose data axis has P > 1 ranks; JAX
+serve.py:175-200, :385-400): `embed_loader` and `predict_qa` read the
+loader's shard of this data rank, drop its wrapped duplicates
+(`sample_valid`) and gather once after the loop, so the dataset order
+holds; `embed_texts` gives each data rank a contiguous ceil(N / P) share
+of the queries and gathers the same way; the local sims split their
+gallery rows (parallel/sharded_eval.py). Every rank returns the whole
+result.
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ import torch
 from demovlp_tpu_torch.device import to_device
 from demovlp_tpu_torch.ops.masking import additive_mask
 from demovlp_tpu_torch.ops.similarity import sim_matrix
+from demovlp_tpu_torch.parallel.mesh import (data_allgather, data_coords,
+                                             host_allgather_pylist, host_allgather_ragged)
 from demovlp_tpu_torch.parallel.sharded_eval import sharded_local_sims
 from demovlp_tpu_torch.train.steps import batch_to_device, pad_batch, prepare_batch
 
@@ -57,8 +68,19 @@ def make_embed_step(model: torch.nn.Module) -> Callable:
     return step
 
 
+def _keep_rows(arrays: Dict[str, np.ndarray], batch_size: int) -> Tuple[Dict, np.ndarray]:
+    """The batch padded to `batch_size` rows and the mask of its rows to
+    keep: neither pad rows nor a shard's wrapped duplicates."""
+    flags = arrays.pop("sample_valid", None)
+    arrays, n_valid = pad_batch(arrays, batch_size)
+    keep = np.arange(batch_size) < n_valid
+    if flags is not None:
+        keep[:n_valid] &= flags.astype(bool)
+    return arrays, keep
+
+
 def embed_loader(embed_step: Callable, dl, tokenizer, device,
-                 transfer_dtype: torch.dtype | None = None,
+                 transfer_dtype: torch.dtype | None = None, mesh=None,
                  ) -> Tuple[Dict[str, np.ndarray], Dict[str, List[str]]]:
     """Embed every sample of the loader once -> (cat, metas).
 
@@ -81,11 +103,11 @@ def embed_loader(embed_step: Callable, dl, tokenizer, device,
 
     pending = None
     for data in dl:
-        arrays, n_valid = pad_batch(prepare_batch(data, tokenizer), dl.batch_size)
-        keep = np.arange(dl.batch_size) < n_valid
-        for m in data["meta"]:
-            paths.append(str(m["paths"]))
-            captions.append(str(m["raw_captions"]))
+        arrays, keep = _keep_rows(prepare_batch(data, tokenizer), dl.batch_size)
+        for m, k in zip(data["meta"], keep):
+            if k:
+                paths.append(str(m["paths"]))
+                captions.append(str(m["raw_captions"]))
         # host cast of the regions: round-to-nearest-even, as the tower's own cast does
         out = embed_step(batch_to_device(arrays, device, transfer_dtype))
         host = _to_host({k: out[OUT_KEYS[k]] for k in EMBED_KEYS}, device)
@@ -95,7 +117,12 @@ def embed_loader(embed_step: Callable, dl, tokenizer, device,
     if pending is not None:
         drain(*pending)
     cat = {k: np.concatenate(v, axis=0) for k, v in arrs.items()}
-    return cat, {"paths": paths, "raw_captions": captions}
+    meta = {"paths": paths, "raw_captions": captions}
+    if mesh is not None:
+        gather = data_allgather(mesh)
+        cat = {k: host_allgather_ragged(v, gather) for k, v in cat.items()}
+        meta = {k: host_allgather_pylist(v, gather) for k, v in meta.items()}
+    return cat, meta
 
 
 def _to_host(out: Dict[str, torch.Tensor], device: torch.device):
@@ -131,16 +158,22 @@ def make_text_embed_step(model: torch.nn.Module) -> Callable:
 
 
 def embed_texts(text_step: Callable, queries, tokenizer, device, *, batch_size: int = 128,
-                max_text_len: int = 100) -> Dict[str, np.ndarray]:
+                max_text_len: int = 100, mesh=None) -> Dict[str, np.ndarray]:
     """Embed query strings through the text tower only, in batches of
     min(batch_size, len(queries)) rows, the last padded with "" rows that
     are dropped; one batch in flight, as in embed_loader. Returns {g_t
-    (N, D), l_t (N, L-1, D), t_mask additive (N, L-1)} as f32 numpy."""
+    (N, D), l_t (N, L-1, D), t_mask additive (N, L-1)} as f32 numpy.
+    Every process passes the same queries; with a data-parallel `mesh`
+    each data rank embeds its contiguous share (every rank runs the same
+    number of batches)."""
     if not queries:
         raise ValueError("embed_texts: empty query list")
     device = torch.device(device)
     queries = [str(q) for q in queries]
-    bs = max(1, min(batch_size, len(queries)))
+    rank, ranks = data_coords(mesh)
+    per = -(-len(queries) // ranks)
+    local = queries[rank * per:(rank + 1) * per]
+    bs = max(1, min(batch_size, per))
     outs: Dict[str, List[np.ndarray]] = {k: [] for k in ("g_t", "l_t", "t_mask")}
 
     def drain(host, done, keep) -> None:
@@ -150,8 +183,8 @@ def embed_texts(text_step: Callable, queries, tokenizer, device, *, batch_size: 
             outs[k].append(_host_rows(host[k], keep))
 
     pending = None
-    for s in range(0, len(queries), bs):
-        chunk = queries[s:s + bs]
+    for s in range(0, per, bs):
+        chunk = local[s:s + bs]
         keep = np.arange(bs) < len(chunk)
         enc = tokenizer(chunk + [""] * (bs - len(chunk)), max_length=max_text_len)
         out = text_step(to_device(enc["input_ids"].astype(np.int64), device),
@@ -161,7 +194,10 @@ def embed_texts(text_step: Callable, queries, tokenizer, device, *, batch_size: 
             drain(*pending)
         pending = (*host, keep)
     drain(*pending)
-    return {k: np.concatenate(v, axis=0) for k, v in outs.items()}
+    cat = {k: np.concatenate(v, axis=0) for k, v in outs.items()}
+    if ranks > 1:
+        cat = {k: host_allgather_ragged(v, data_allgather(mesh)) for k, v in cat.items()}
+    return cat
 
 
 def load_index(path) -> Tuple[Dict[str, np.ndarray], Dict[str, List[str]]]:
@@ -174,7 +210,7 @@ def load_index(path) -> Tuple[Dict[str, np.ndarray], Dict[str, List[str]]]:
 
 def query_sims(q: Dict[str, np.ndarray], gallery: Dict[str, np.ndarray], device, *,
                use_local: bool = True, lambda_softmax: float = 20.0,
-               focal_type: str = "prob") -> np.ndarray:
+               focal_type: str = "prob", mesh=None) -> np.ndarray:
     """(query, gallery) sims: global cosine in f32, plus (if use_local) the
     local sims computed (gallery video, query text) and transposed."""
     device = torch.device(device)
@@ -184,7 +220,7 @@ def query_sims(q: Dict[str, np.ndarray], gallery: Dict[str, np.ndarray], device,
     if use_local:
         local = sharded_local_sims(gallery["l_o"], q["l_t"], gallery["o_mask"], q["t_mask"],
                                    device=device, lambda_softmax=lambda_softmax,
-                                   focal_type=focal_type)
+                                   focal_type=focal_type, mesh=mesh)
         sims = sims + local.T
     return sims
 
@@ -194,20 +230,20 @@ def query_retrieval(text_step: Callable, queries, tokenizer, gallery: Dict[str, 
                     lambda_softmax: float = 20.0, focal_type: str = "prob",
                     mscoco_dedup: bool = False,
                     gallery_meta: Dict[str, List[str]] | None = None,
-                    batch_size: int = 128) -> Tuple[List[Dict[str, Any]], np.ndarray]:
+                    batch_size: int = 128, mesh=None) -> Tuple[List[Dict[str, Any]], np.ndarray]:
     """Free-text queries -> top-k gallery videos against an index (the dict
     embed_loader returns or load_index reads; only g_o, l_o and o_mask are
     read). Under mscoco_dedup the gallery keeps every 5th row and the
     returned indices are npz rows (x 5). Returns (results, the (query,
     gallery) sims scored)."""
-    q = embed_texts(text_step, queries, tokenizer, device, batch_size=batch_size)
+    q = embed_texts(text_step, queries, tokenizer, device, batch_size=batch_size, mesh=mesh)
     gal = gallery
     if mscoco_dedup:
         gal = {key: v[::5] for key, v in gallery.items()}
         if gallery_meta is not None:
             gallery_meta = {key: v[::5] for key, v in gallery_meta.items()}
     sims = query_sims(q, gal, device, use_local=use_local, lambda_softmax=lambda_softmax,
-                      focal_type=focal_type)
+                      focal_type=focal_type, mesh=mesh)
     results = topk_retrieval(sims, k=k, query_meta={"raw_captions": [str(s) for s in queries]},
                              gallery_meta=gallery_meta)
     if mscoco_dedup:
@@ -218,7 +254,7 @@ def query_retrieval(text_step: Callable, queries, tokenizer, gallery: Dict[str, 
 
 def combined_sims(cat: Dict[str, np.ndarray], device, *, use_local: bool = True,
                   lambda_softmax: float = 20.0, focal_type: str = "prob",
-                  mscoco_dedup: bool = False) -> np.ndarray:
+                  mscoco_dedup: bool = False, mesh=None) -> np.ndarray:
     """(text, video) similarity matrix as the trainer scores eval: global
     cosine sims + (if use_local) the local cross-attention sims, summed
     with the reference's orientation quirk."""
@@ -233,7 +269,7 @@ def combined_sims(cat: Dict[str, np.ndarray], device, *, use_local: bool = True,
     if use_local:
         local = sharded_local_sims(
             cat["l_o"], cat["l_t"], cat["o_mask"], cat["t_mask"], device=device,
-            lambda_softmax=lambda_softmax, focal_type=focal_type,
+            lambda_softmax=lambda_softmax, focal_type=focal_type, mesh=mesh,
         )
         # (video, text); non-square only under MSCOCO dedup, where the
         # reference's elementwise quirk is undefined: transpose then
@@ -244,7 +280,7 @@ def combined_sims(cat: Dict[str, np.ndarray], device, *, use_local: bool = True,
 
 
 def predict_qa(eval_step: Callable, dl, tokenizer, device, label2ans=None,
-               transfer_dtype: torch.dtype | None = None) -> List[Dict[str, Any]]:
+               transfer_dtype: torch.dtype | None = None, mesh=None) -> List[Dict[str, Any]]:
     """Video-QA prediction over a loader: one {question_id, answer (label
     index), answer_text (with label2ans)} a sample, every sample once, pad
     rows of the last batch dropped. `eval_step` is
@@ -258,14 +294,13 @@ def predict_qa(eval_step: Callable, dl, tokenizer, device, label2ans=None,
         if done is not None:
             done.synchronize()
         preds.append(host["pred"].numpy()[keep])
-        qids.append(batch_qids)
+        qids.append(batch_qids[keep[:len(batch_qids)]])
 
     pending = None
     for data in dl:
         arrays = prepare_batch(data, tokenizer)
         arrays.pop("label", None)
-        arrays, n_valid = pad_batch(arrays, dl.batch_size)
-        keep = np.arange(dl.batch_size) < n_valid
+        arrays, keep = _keep_rows(arrays, dl.batch_size)
         logits = eval_step(batch_to_device(arrays, device, transfer_dtype))
         host = _to_host({"pred": torch.argmax(logits, dim=-1)}, device)
         if pending is not None:
@@ -273,9 +308,16 @@ def predict_qa(eval_step: Callable, dl, tokenizer, device, label2ans=None,
         pending = (*host, keep, np.asarray(data["question_id"]))
     if pending is not None:
         drain(*pending)
+    preds_all = np.concatenate(preds) if preds else np.zeros((0,), np.int64)
+    qids_all = np.concatenate(qids) if qids else np.zeros((0,), np.int64)
+    if mesh is not None:
+        # one gather after the loop: the shards are contiguous, so their
+        # concatenation keeps the dataset order
+        gather = data_allgather(mesh)
+        preds_all = host_allgather_ragged(preds_all, gather)
+        qids_all = host_allgather_ragged(qids_all, gather)
     results: List[Dict[str, Any]] = []
-    for qid, pred in zip(np.concatenate(qids) if qids else [],
-                         np.concatenate(preds) if preds else []):
+    for qid, pred in zip(qids_all, preds_all):
         entry: Dict[str, Any] = {"question_id": int(qid), "answer": int(pred)}
         if label2ans is not None:
             entry["answer_text"] = label2ans[int(pred)]

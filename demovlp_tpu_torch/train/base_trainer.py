@@ -14,6 +14,11 @@ Reference behaviour kept:
     console and the run's info.log, utils/logging.py); `writer` takes the
     run's scalars and `visualizer` the retrieval rankings (either may be
     None).
+
+`mesh` (parallel/mesh.py, None at one process) reaches the steps and the
+gathers; across processes only rank 0 logs, prints and writes (the CLIs
+give the other ranks no writer and no visualizer), while every rank saves
+and restores through the checkpoint manager, which writes on rank 0.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from demovlp_tpu_torch.parallel.mesh import is_main_process
 from demovlp_tpu_torch.train.checkpoint import CheckpointManager
 from demovlp_tpu_torch.train.optim import step_decay_lr
 
@@ -30,7 +36,7 @@ class BaseTrainer:
     def __init__(self, model, loss, metrics: List, optimizer, config: Dict[str, Any],
                  save_dir, schedule=(30, 40), learning_rate1: float = 2e-4,
                  lr_mode: str = "reference", rng_seed: int = 0, writer=None,
-                 visualizer=None):
+                 visualizer=None, mesh=None):
         self.model = model
         self.loss = loss
         self.metrics = metrics
@@ -43,6 +49,8 @@ class BaseTrainer:
         self.logger = logging.getLogger("trainer")
         self.writer = writer
         self.visualizer = visualizer
+        self.mesh = mesh
+        self.is_main = is_main_process()
 
         cfg_trainer = config["trainer"]
         self.epochs = cfg_trainer["epochs"]
@@ -74,7 +82,8 @@ class BaseTrainer:
         self.start_epoch = int(meta.get("epoch", 0)) + 1
         if "monitor_best" in meta:
             self.mnt_best = meta["monitor_best"]
-        self.logger.info("Resumed from %s at epoch %d", path, self.start_epoch)
+        if self.is_main:
+            self.logger.info("Resumed from %s at epoch %d", path, self.start_epoch)
 
     @staticmethod
     def _flatten_log(epoch: int, result: Optional[Dict[str, Any]]) -> Dict[str, Any]:
@@ -99,7 +108,8 @@ class BaseTrainer:
         for epoch in range(self.start_epoch, self.epochs + 1):
             log = self._flatten_log(epoch, self._train_epoch(epoch))
             for key, value in log.items():
-                self.logger.info("    %-15s: %s", str(key), value)
+                if self.is_main:
+                    self.logger.info("    %-15s: %s", str(key), value)
             best = False
             if self.mnt_mode != "off":
                 if self.mnt_metric not in log:

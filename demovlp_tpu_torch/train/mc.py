@@ -3,16 +3,20 @@ each item is one video and its option texts; the video is repeated over
 the options, each option scored by global + local similarity, and the
 argmax over the options is the prediction. `trainer.mc_eval_batch` items
 (default 8) go through the towers in one call (`make_mc_eval_step_batched`);
-1 takes the reference-shaped batch-1 path (`make_mc_eval_step`). One
-process: `merge_mc_predictions` only checks the ids.
+1 takes the reference-shaped batch-1 path (`make_mc_eval_step`). Across
+processes each data rank scores its loader shard (its wrapped duplicates
+scored, so every rank runs the same calls, but not recorded) and
+`merge_mc_predictions` gathers the {mc_id: prediction} maps over the
+dataset's id positions (JAX mc.py:31-60, :220).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from demovlp_tpu_torch.parallel.mesh import data_allgather
 from demovlp_tpu_torch.train.base_trainer import BaseTrainer
 from demovlp_tpu_torch.train.steps import (batch_to_device, make_mc_eval_step,
                                            make_mc_eval_step_batched, prepare_batch)
@@ -20,15 +24,27 @@ from demovlp_tpu_torch.train.steps import (batch_to_device, make_mc_eval_step,
 _MODEL_KEYS = ("input_ids", "attention_mask", "object", "object_mask")
 
 
-def merge_mc_predictions(preds: Dict[Any, int], metadata_ids: List[Any]) -> Dict[Any, int]:
-    """{mc_id: prediction} of one process, in the order it was filled, with
-    every id checked against the dataset's id sequence (the JAX package
-    gathers these maps across hosts by that sequence's integer positions)."""
+def merge_mc_predictions(preds: Dict[Any, int], metadata_ids: List[Any],
+                         allgather: Optional[Callable] = None) -> Dict[Any, int]:
+    """Merge the processes' {mc_id: prediction} maps, every id checked
+    against the dataset's id sequence. The ids travel as their positions in
+    that sequence (identical on every process), padded with -1 to the
+    largest count. Without `allgather` (one process) the map is returned
+    in the order it was filled."""
     known = set(metadata_ids)
     unknown = [k for k in preds if k not in known]
     if unknown:
         raise KeyError(f"mc ids not in the dataset: {unknown[:5]}")
-    return {k: int(p) for k, p in preds.items()}
+    if allgather is None:
+        return {k: int(p) for k, p in preds.items()}
+    id2idx = {mc_id: i for i, mc_id in enumerate(metadata_ids)}
+    idx = np.asarray([id2idx[k] for k in preds], np.int64)
+    pred = np.asarray(list(preds.values()), np.int64)
+    cap = int(np.max(allgather(np.asarray([idx.size], np.int64))))
+    fill = np.full(cap - idx.size, -1, np.int64)
+    all_idx = allgather(np.concatenate([idx, fill]))
+    all_pred = allgather(np.concatenate([pred, fill]))
+    return {metadata_ids[int(i)]: int(p) for i, p in zip(all_idx, all_pred) if i >= 0}
 
 
 class MCTrainer(BaseTrainer):
@@ -56,24 +72,27 @@ class MCTrainer(BaseTrainer):
         return None  # eval-only task
 
     def _items(self, dl):
-        """(mc_id, option arrays with the video repeated) per loader item."""
+        """(mc_id, option arrays with the video repeated, whether to record
+        it: not a shard's wrapped duplicate) per loader item."""
         for data in dl:
             arrays = prepare_batch(data, self.tokenizer)
             arrays.pop("label", None)
+            flags = arrays.pop("sample_valid", None)
             n_opt = arrays["input_ids"].shape[0]
             arrays["object"] = np.repeat(data["object"], n_opt, axis=0)
             arrays["object_mask"] = np.repeat(data["object_mask"], n_opt, axis=0)
-            yield data["mc_id"][0], arrays
+            yield data["mc_id"][0], arrays, flags is None or bool(flags[0])
 
     def predict(self, dl) -> Dict[Any, int]:
         """{mc_id: argmax option} over an eval loader (batch 1: one item a
         loader batch)."""
         preds: Dict[Any, int] = {}
         if self.mc_eval_batch <= 1:
-            for mc_id, arrays in self._items(dl):
+            for mc_id, arrays, record in self._items(dl):
                 scores = self._eval_step(batch_to_device(arrays, self.device,
                                                          self.transfer_dtype))
-                preds[mc_id] = int(torch.argmax(scores))
+                if record:
+                    preds[mc_id] = int(torch.argmax(scores))
             return preds
         group: List[Dict[str, np.ndarray]] = []
         ids: List[Any] = []
@@ -84,13 +103,14 @@ class MCTrainer(BaseTrainer):
             batch = {k: np.stack([g[k] for g in group]) for k in _MODEL_KEYS}
             scores = self._eval_step(batch_to_device(batch, self.device, self.transfer_dtype))
             for mc_id, row in zip(ids, torch.argmax(scores[:n_real], dim=-1).tolist()):
-                preds[mc_id] = int(row)
+                if mc_id is not None:
+                    preds[mc_id] = int(row)
             group.clear()
             ids.clear()
 
-        for mc_id, arrays in self._items(dl):
+        for mc_id, arrays, record in self._items(dl):
             group.append(arrays)
-            ids.append(mc_id)
+            ids.append(mc_id if record else None)
             if len(group) == self.mc_eval_batch:
                 flush()
         if group:
@@ -101,11 +121,13 @@ class MCTrainer(BaseTrainer):
         nested: Dict[int, Dict[str, Any]] = {}
         for dl_idx, dl in enumerate(self.valid_data_loader):
             gt = self.valid_gt_id2answer[dl_idx]
-            preds = merge_mc_predictions(self.predict(dl), list(gt))
+            preds = merge_mc_predictions(self.predict(dl), list(gt),
+                                         data_allgather(self.mesh))
             dl_metrics: Dict[str, Any] = {}
             for metric in self.metrics:
                 dl_metrics[metric.__name__] = r = metric(preds, gt)
-                print(r, flush=True)
+                if self.is_main:
+                    print(r, flush=True)
             nested[dl_idx] = dl_metrics
         res: Dict[str, Any] = {f"val_loss_{i}": 0.0 for i in range(len(self.valid_data_loader))}
         res["nested_val_metrics"] = nested

@@ -17,7 +17,9 @@ update forms:
 itself reads the f32 moment before it is stored). `pack_small` is accepted
 and changes nothing: it is numerically exact in the JAX package, and here
 every update already runs as a few multi-tensor (foreach) kernels.
-The learning rate is set per epoch (`set_lr`).
+The learning rate is set per epoch (`set_lr`). A parameter split by the
+tensor-parallel plan (parallel/tp.py) is updated through this rank's block,
+and the clip norm counts every block once.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from typing import Iterable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -54,6 +58,16 @@ def step_decay_lr(epoch: int, base_lr: float, lr1: float, milestones: Sequence[i
         if epoch > m:
             lr *= 0.1
     return lr
+
+
+def _tp_global_norm(grads, is_sharded, group) -> torch.Tensor:
+    """The global gradient norm with tensor-parallel blocks: each rank's
+    blocks' squares summed over the model group, replicated tensors once."""
+    sq = [n * n for n in torch._foreach_norm(grads)]
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    shard_sq = sum((s for s, sh in zip(sq, is_sharded) if sh), zero)
+    dist.all_reduce(shard_sq, group=group)
+    return torch.sqrt(sum((s for s, sh in zip(sq, is_sharded) if not sh), zero) + shard_sq)
 
 
 class AdamW(torch.optim.Optimizer):
@@ -97,18 +111,27 @@ class AdamW(torch.optim.Optimizer):
         if not params:
             return
         lr, b1, b2, eps, wd = (group[k] for k in ("lr", "b1", "b2", "eps", "weight_decay"))
-        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p, dtype=torch.float32)
-                 for p in params]
+        sharded = [p for p in params if isinstance(p, DTensor)]
+        # a tensor-parallel parameter (parallel/tp.py) is updated through
+        # this rank's block; its moments are blocks too
+        params = [p.to_local() if isinstance(p, DTensor) else p for p in params]
+        grads = [(g.to_local() if isinstance(g, DTensor) else g).float() if g is not None
+                 else torch.zeros_like(p, dtype=torch.float32)
+                 for p, g in zip(params, (p.grad for p in group["params"]))]
         max_norm = group["max_grad_norm"]
         if max_norm:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if sharded:
+                norm = _tp_global_norm(grads, [isinstance(p, DTensor) for p in group["params"]],
+                                       sharded[0].device_mesh.get_group())
+            else:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             # optax: keep g below the limit, else (g / |g|) * max; chosen
             # on the device (dividing and multiplying by 1 is exact)
             below = norm < max_norm
             grads = torch._foreach_div(grads, torch.where(below, 1.0, norm))
             torch._foreach_mul_(grads, torch.where(below, 1.0, float(max_norm)))
         mu_dtype = _DTYPES[group["mu_dtype"]]
-        states = [self.state[p] for p in params]
+        states = [self.state[p] for p in group["params"]]
         for p, st in zip(params, states):
             if not st:
                 st["mu"] = torch.zeros_like(p, dtype=mu_dtype or p.dtype)

@@ -4,8 +4,9 @@ to `trainer.text_buckets` when set (QA max-pools over every position, pads
 included, so trimming moves the loss as it does in the JAX package). Eval
 takes the argmax of every val sample's logits (serve.predict_qa) and scores
 them with `evaluate_qa`'s per-answer-type breakdown. Each train loss goes
-to the writer one step late, as in the retrieval trainer. One process: no
-gathers across hosts.
+to the writer one step late, as in the retrieval trainer. Across
+processes the predictions are gathered in dataset order (JAX
+qa.py:170-200) and the running accuracy counts the global batch.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from demovlp_tpu_torch.parallel.mesh import data_coords
 from demovlp_tpu_torch.serve import predict_qa
 from demovlp_tpu_torch.train.async_metrics import DeferredMetrics
 from demovlp_tpu_torch.train.base_trainer import BaseTrainer
@@ -49,7 +51,7 @@ class QATrainer(BaseTrainer):
         self.text_buckets = parse_text_buckets(config["trainer"])
         self.valid_label2ans = [dl.dataset.label2ans for dl in self.valid_data_loader]
         self.valid_qid2data = [dl.dataset.qid2data for dl in self.valid_data_loader]
-        self._train_step = make_qa_train_step(model, loss, optimizer)
+        self._train_step = make_qa_train_step(model, loss, optimizer, mesh=self.mesh)
         self._eval_step = make_qa_eval_step(model)
 
     def _train_epoch(self, epoch: int) -> Dict[str, Any]:
@@ -66,7 +68,7 @@ class QATrainer(BaseTrainer):
             pos_cnt += float(m["correct"])
             tot_cnt += n_text
             total_loss[dl_idx] += loss_v
-            if batch_idx % self.log_step == 0:
+            if batch_idx % self.log_step == 0 and self.is_main:
                 print(f"loss:{loss_v}, acc: {pos_cnt / max(1, tot_cnt)}, "
                       f"postive/all : {pos_cnt}/{tot_cnt}", flush=True)
             if self.writer is not None:
@@ -89,7 +91,8 @@ class QATrainer(BaseTrainer):
                         torch.cuda.synchronize(self.device)
                     self.step_times.append(time.perf_counter() - t0)
                 step_no += 1
-                deferred.push(m, dl_idx, batch_idx, step_no, len(data["text"]))
+                deferred.push(m, dl_idx, batch_idx, step_no,
+                              len(data["text"]) * data_coords(self.mesh)[1])
                 n_steps += 1
             if batch_idx == self.len_epoch:
                 break
@@ -108,13 +111,15 @@ class QATrainer(BaseTrainer):
             qid2data = self.valid_qid2data[dl_idx]
             results = [dict(r, data=qid2data[r["question_id"]]) for r in predict_qa(
                 self._eval_step, dl, self.tokenizer, self.device,
-                transfer_dtype=self.transfer_dtype)]
-            print(f"Get {len(results)} results.", flush=True)
+                transfer_dtype=self.transfer_dtype, mesh=self.mesh)]
+            if self.is_main:
+                print(f"Get {len(results)} results.", flush=True)
             dl_metrics: Dict[str, Any] = {}
             for metric in self.metrics:
                 dl_metrics[metric.__name__] = r = metric(results, self.valid_label2ans[dl_idx],
                                                          qid2data)
-                print(r, flush=True)
+                if self.is_main:
+                    print(r, flush=True)
             nested[dl_idx] = dl_metrics
             res[f"val_loss_{dl_idx}"] = 0.0
         res["nested_val_metrics"] = nested

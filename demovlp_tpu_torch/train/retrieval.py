@@ -18,6 +18,12 @@ orientation quirk is kept — global(text, video) + local(video, text) summed
 elementwise — and MSCOCO-named configs take every 5th video row. The
 visualizer (when configured) renders the rankings, and the writer takes
 `loss_val_{dl}`.
+
+Across processes (JAX retrieval.py:288-312): each data rank embeds its
+loader shard, drops the pad rows and wrapped duplicates, and the
+embeddings and metadata are gathered once after the loop
+(`host_allgather_ragged` / `_pylist`); the val loss is the global batch's
+over its valid rows.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ import numpy as np
 import torch
 
 from demovlp_tpu_torch.data.mlm import mask_batch_text_tokens
+from demovlp_tpu_torch.parallel.mesh import (data_allgather, host_allgather_pylist,
+                                             host_allgather_ragged)
 from demovlp_tpu_torch.serve import EMBED_KEYS, OUT_KEYS, combined_sims
 from demovlp_tpu_torch.train.async_metrics import DeferredMetrics
 from demovlp_tpu_torch.train.base_trainer import BaseTrainer
@@ -77,8 +85,9 @@ class RetrievalTrainer(BaseTrainer):
         self.mlm_vocab = int(mlm.get("vocab_size", model.text_model.config.vocab_size))
         self._mlm_rng = np.random.default_rng(self.rng_seed + 1)
         self._train_step = make_retrieval_train_step(model, loss, optimizer,
-                                                     mlm_weight=self.mlm_weight)
-        self._eval_step = make_retrieval_eval_step(model, loss)
+                                                     mlm_weight=self.mlm_weight,
+                                                     mesh=self.mesh)
+        self._eval_step = make_retrieval_eval_step(model, loss, mesh=self.mesh)
 
     def _train_epoch(self, epoch: int) -> Dict[str, Any]:
         lr = self.current_lr(epoch)
@@ -90,7 +99,7 @@ class RetrievalTrainer(BaseTrainer):
         def consume(m, dl_idx, batch_idx, step_no):
             loss_v = float(m["loss"])
             self.step_losses.append(loss_v)
-            if batch_idx % self.log_step == 0:
+            if batch_idx % self.log_step == 0 and self.is_main:
                 print(f"loss:{loss_v}, global_loss: {float(m['global_loss'])}, "
                       f"local_loss: {float(m['local_loss'])}", flush=True)
             total_loss[dl_idx] += loss_v
@@ -143,14 +152,18 @@ class RetrievalTrainer(BaseTrainer):
     def embed(self, dl, metas: Optional[List[Dict[str, Any]]] = None):
         """Every sample of an eval loader once: (host embedding dict, mean
         batch loss). Each sample's meta dict is appended to `metas` when a
-        list is given."""
+        list is given. Across processes both are gathered in dataset order."""
         arrs: Dict[str, List[np.ndarray]] = {k: [] for k in EMBED_KEYS}
         total_val_loss, n_batches = 0.0, 0
+        local_metas: List[Dict[str, Any]] = []
         for data in dl:
-            arrays, n_valid = pad_batch(prepare_batch(data, self.tokenizer), dl.batch_size)
-            if metas is not None:
-                metas.extend(data["meta"])
+            arrays = prepare_batch(data, self.tokenizer)
+            flags = arrays.pop("sample_valid", None)
+            arrays, n_valid = pad_batch(arrays, dl.batch_size)
             keep = np.arange(dl.batch_size) < n_valid
+            if flags is not None:
+                keep[:n_valid] &= flags.astype(bool)
+            local_metas.extend(m for m, k in zip(data["meta"], keep) if k)
             arrays["valid"] = keep.astype(np.float32)
             out, (loss, _, _) = self._eval_step(
                 batch_to_device(arrays, self.device, self.transfer_dtype))
@@ -160,6 +173,12 @@ class RetrievalTrainer(BaseTrainer):
                 v = out[OUT_KEYS[k]]
                 arrs[k].append((v.float() if v.is_floating_point() else v).cpu().numpy()[keep])
         cat = {k: np.concatenate(v, axis=0) for k, v in arrs.items()}
+        if self.mesh is not None:
+            gather = data_allgather(self.mesh)
+            cat = {k: host_allgather_ragged(v, gather) for k, v in cat.items()}
+            local_metas = host_allgather_pylist(local_metas, gather)
+        if metas is not None:
+            metas.extend(local_metas)
         return cat, total_val_loss / max(1, n_batches)
 
     def _valid_epoch(self, epoch: int) -> Dict[str, Any]:
@@ -173,11 +192,12 @@ class RetrievalTrainer(BaseTrainer):
             sims = combined_sims(
                 cat, self.device, use_local=bool(loss_args.get("use_local", True)),
                 lambda_softmax=local.lambda_softmax, focal_type=local.focal_type,
-                mscoco_dedup=str(self.config["name"]).startswith("MSCOCO"))
+                mscoco_dedup=str(self.config["name"]).startswith("MSCOCO"), mesh=self.mesh)
             dl_metrics = {}
             for metric in self.metrics:
                 dl_metrics[metric.__name__] = r = metric(sims)
-                verbose(epoch, r, name=dl.dataset_name, mode=metric.__name__)
+                if self.is_main:
+                    verbose(epoch, r, name=dl.dataset_name, mode=metric.__name__)
             nested[dl_idx] = dl_metrics
             if self.visualizer is not None:
                 meta = {"paths": [m.get("paths", "") for m in metas],

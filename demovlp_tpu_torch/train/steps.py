@@ -7,9 +7,20 @@ demovlp_tpu/train/steps.py: `prepare_batch`, `parse_text_buckets`,
 
 Every batch is tokenized to the fixed length 100, as the reference does;
 with `text_buckets` (train batches only) it is then trimmed to the
-smallest bucket that holds its longest text. One process, so the bucket
-needs no agreement across processes. `cast_tower_weights` (numerically a
+smallest bucket that holds its longest text, the largest such bucket over
+the processes (JAX steps.py:72-79). `cast_tower_weights` (numerically a
 no-op) is not ported.
+
+With a mesh (parallel/mesh.py) whose data axis has more than one rank,
+each rank runs the towers on its own rows, and the embeddings the loss
+reads are all-gathered (`gather_rows`, whose backward keeps this rank's
+slice), so every rank computes the global loss over the concatenated
+batch, as JAX's replicated assembly does. The gradients are then summed
+over the data axis: each rank's gradient holds only its rows' share of
+the one global loss, so the sum is the one-process gradient, and
+`max_grad_norm` clips the summed gradient. The MLM loss is normalised by
+the global count of masked tokens and the QA cross-entropy is a mean over
+the global batch. Without a mesh nothing is gathered or reduced.
 """
 from __future__ import annotations
 
@@ -21,6 +32,8 @@ import torch
 from demovlp_tpu_torch.device import to_device
 from demovlp_tpu_torch.ops.masking import additive_mask
 from demovlp_tpu_torch.ops.similarity import sim_matrix
+from demovlp_tpu_torch.parallel.mesh import (all_reduce_max_int, all_reduce_sum, data_group,
+                                             gather_rows, process_count, reduce_gradients)
 
 
 def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100,
@@ -43,6 +56,11 @@ def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100,
         longest = int(enc["attention_mask"].sum(axis=1).max())
         length = enc["input_ids"].shape[1]
         target = min((b for b in text_buckets if longest <= b < length), default=length)
+        if process_count() > 1:
+            # one text length for the global batch: the max over the
+            # processes of their buckets is the bucket of the global
+            # longest text (the bucket map is monotone)
+            target = all_reduce_max_int(target)
         if target < length:
             enc = {"input_ids": enc["input_ids"][:, :target],
                    "attention_mask": enc["attention_mask"][:, :target]}
@@ -54,6 +72,8 @@ def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100,
     }
     if "label" in batch:
         arrays["label"] = batch["label"]
+    if "sample_valid" in batch:
+        arrays["sample_valid"] = batch["sample_valid"]
     return arrays
 
 
@@ -114,48 +134,77 @@ def retrieval_losses(loss_obj, outputs, batch, valid=None):
     )
 
 
-def mlm_loss_fn(logits, labels, ignore_index: int = -100):
+def _global_batch(out, batch, group, valid=None):
+    """The loss's inputs over the global batch: the embeddings (in f32, as
+    the losses read them), the region mask, the text mask and the eval
+    validity flags of every data rank, in rank order."""
+    out = dict(out)
+    for k in ("global_text_embeddings", "global_object_embeddings",
+              "local_object_embeddings", "local_text_embeddings"):
+        out[k] = gather_rows(out[k].float(), group)
+    out["object_mask"] = gather_rows(out["object_mask"], group)
+    batch = {"attention_mask": gather_rows(batch["attention_mask"], group)}
+    return out, batch, (None if valid is None else gather_rows(valid, group))
+
+
+def mlm_loss_fn(logits, labels, ignore_index: int = -100, group=None):
     """Masked-LM cross-entropy (f32) averaged over the positions whose label
-    is not `ignore_index`; 0 where there are none."""
+    is not `ignore_index`; 0 where there are none. With a data group the
+    denominator is the count over the global batch, so the group's terms
+    sum to the global loss."""
     logits = logits.float()
     valid = (labels != ignore_index).float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
-    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return torch.sum(nll * valid) / torch.clamp(all_reduce_sum(torch.sum(valid), group), min=1.0)
 
 
 def make_retrieval_train_step(model: torch.nn.Module, loss_obj, optimizer,
                               deterministic: bool = False,
-                              mlm_weight: float = 0.0) -> Callable:
+                              mlm_weight: float = 0.0, mesh=None) -> Callable:
     """step(batch, lr) -> metrics (device scalars): forward (dropout on
     unless `deterministic`), losses, backward, one AdamW update at `lr`.
     With `mlm_weight` the model's MLM head runs on the masked text and
     mlm_weight * mlm_loss_fn(logits, batch["mlm_labels"]) joins the total;
     `mlm_loss` is 0 otherwise. The gradients stay in `p.grad` until the
-    next step."""
+    next step. With a data-parallel `mesh` the step is the global-batch
+    step of the module docstring; the metrics are the global ones."""
+    group = data_group(mesh)
 
     def step(batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
         model.train(not deterministic)
         optimizer.set_lr(lr)
         optimizer.zero_grad(set_to_none=True)
         out = model(batch, mlm=True) if mlm_weight else model(batch)
-        total, g, l = retrieval_losses(loss_obj, out, batch)
+        if group is None:
+            total, g, l = retrieval_losses(loss_obj, out, batch)
+        else:
+            total, g, l = retrieval_losses(loss_obj, *_global_batch(out, batch, group)[:2])
         if mlm_weight:
-            mlm = mlm_loss_fn(out["mlm_logits"], batch["mlm_labels"])
+            mlm = mlm_loss_fn(out["mlm_logits"], batch["mlm_labels"], group=group)
             total = total + mlm_weight * mlm
         else:
             mlm = torch.zeros((), dtype=torch.float32, device=total.device)
         total.backward()
+        reduce_gradients(model.parameters(), group)
         optimizer.step()
+        if group is not None and mlm_weight:
+            # this rank's total holds only its share of the MLM term
+            mlm_all = all_reduce_sum(mlm, group)
+            total = total.detach() + mlm_weight * (mlm_all - mlm.detach())
+            mlm = mlm_all
         return {"loss": total.detach(), "global_loss": g.detach(), "local_loss": l.detach(),
                 "mlm_loss": mlm.detach()}
 
     return step
 
 
-def make_retrieval_eval_step(model: torch.nn.Module, loss_obj) -> Callable:
+def make_retrieval_eval_step(model: torch.nn.Module, loss_obj, mesh=None) -> Callable:
     """step(batch) -> (embedding dict, (total, global, local)). An optional
-    batch["valid"] (B,) 0/1 mask excludes pad rows from the loss."""
+    batch["valid"] (B,) 0/1 mask excludes pad rows from the loss. With a
+    data-parallel `mesh` the loss is over the global batch (every rank's
+    valid rows); the embeddings returned are this rank's."""
+    group = data_group(mesh)
 
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]):
@@ -163,7 +212,10 @@ def make_retrieval_eval_step(model: torch.nn.Module, loss_obj) -> Callable:
         valid = batch.pop("valid", None)
         model.eval()
         out = dict(model(batch))
-        losses = retrieval_losses(loss_obj, out, batch, valid)
+        if group is None:
+            losses = retrieval_losses(loss_obj, out, batch, valid)
+        else:
+            losses = retrieval_losses(loss_obj, *_global_batch(out, batch, group, valid))
         out["text_mask_add"] = additive_mask(batch["attention_mask"][:, 1:])
         out["text_length"] = torch.sum(batch["attention_mask"], dim=1).to(torch.int32)
         return out, losses
@@ -172,10 +224,14 @@ def make_retrieval_eval_step(model: torch.nn.Module, loss_obj) -> Callable:
 
 
 def make_qa_train_step(model: torch.nn.Module, loss_obj, optimizer,
-                       deterministic: bool = False) -> Callable:
+                       deterministic: bool = False, mesh=None) -> Callable:
     """step(batch, lr) -> {"loss", "correct"} (device scalars): forward
     (dropout on unless `deterministic`), cross-entropy on the logits,
-    backward, one AdamW update; `correct` counts argmax hits."""
+    backward, one AdamW update; `correct` counts argmax hits. With a
+    data-parallel `mesh` the loss is the mean over the global batch (the
+    data ranks' batches are equal) and both metrics are global."""
+    group = data_group(mesh)
+    ranks = 1 if group is None else torch.distributed.get_world_size(group)
 
     def step(batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
         model.train(not deterministic)
@@ -183,10 +239,14 @@ def make_qa_train_step(model: torch.nn.Module, loss_obj, optimizer,
         optimizer.zero_grad(set_to_none=True)
         logits = model(batch)["logits"]
         loss = loss_obj(logits, batch["label"])
+        if group is not None:
+            loss = loss / ranks  # this rank's share of the global mean
         loss.backward()
+        reduce_gradients(model.parameters(), group)
         optimizer.step()
         correct = torch.sum((torch.argmax(logits, dim=-1) == batch["label"]).float())
-        return {"loss": loss.detach(), "correct": correct.detach()}
+        return {"loss": all_reduce_sum(loss.detach(), group),
+                "correct": all_reduce_sum(correct.detach(), group)}
 
     return step
 

@@ -140,3 +140,51 @@ def test_fast_pretrain_config_raises_without_a_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.run(["-c", str(path)])
     assert not (tmp_path / "models").exists()
+
+
+def _mesh_model_2(cfg):
+    cfg["mesh"] = {"model": 2}
+
+
+def _pack_small_tp(cfg):
+    _mesh_model_2(cfg)
+    cfg["optimizer"]["args"]["pack_small"] = True
+
+
+@pytest.mark.parametrize("task", ["retrieval", "qa", "mc"])
+def test_mesh_model_must_divide_the_world_size(tmp_path, task):
+    """One process: `mesh.model` 2 is refused naming the key, as JAX
+    create_mesh asserts it divides the device count."""
+    with pytest.raises(ValueError, match=r"mesh\.model=2 does not divide the world size 1"):
+        _run(tmp_path, task, _mesh_model_2)
+
+
+@pytest.mark.parametrize("cli,extra", [
+    ("extract_embeddings", ["--split", "test", "--output", "emb.npz"]),
+    ("predict_qa", ["--output", "p.json"]),
+    ("query_index", ["--index", "emb.npz", "--query", "a dog"]),
+])
+def test_serving_clis_read_mesh_model(tmp_path, cli, extra):
+    import importlib
+    cfg = json.loads((SMOKE / "synthetic_retrieval.json").read_text())
+    _mesh_model_2(cfg)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    mod = importlib.import_module(f"demovlp_tpu_torch.cli.{cli}")
+    with pytest.raises(ValueError, match=r"mesh\.model=2"):
+        mod.run(["-c", str(path), "--device", "cpu", *extra])
+
+
+def test_pack_small_with_tensor_parallelism_is_refused(tmp_path):
+    with pytest.raises(ValueError, match="pack_small"):
+        _run(tmp_path, "retrieval", _pack_small_tp)
+    cfg = {"optimizer": {"type": "AdamW", "args": {"lr": 1e-4, "pack_small": True}},
+           "mesh": {"model": 2}}
+    with pytest.raises(ValueError, match="pack_small"):
+        common.build_optimizer(cfg, torch.nn.Linear(2, 2).parameters())
+
+
+def test_mesh_model_1_and_pack_small_train(tmp_path):
+    trainer = _run(tmp_path, "retrieval", lambda cfg: (
+        cfg.update(mesh={"model": 1}), cfg["optimizer"]["args"].update(pack_small=True)))
+    assert trainer.mesh is None and len(trainer.step_losses) == 4
