@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build and run the PyTorch port (demovlp_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                                      # one card
+    torchrun --nproc-per-node 4 chip_smoke.py --torchrun       # four cards
 
 Phases, each fatal on failure (exit code != 0, and no result line):
   1. device   — needs a CUDA card; prints its name and power limit;
@@ -45,25 +46,6 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 against the CPU's on the same embeddings; the single query's
                 scoring over the whole gallery, card against CPU, and the
                 CLI's single-query sims against it;
-  6c. dist   — the parallel layer (parallel/mesh.py, parallel/tp.py): (a)
-                NCCL at world size 1: the train CLI on the smoke config under
-                torchrun's environment (setup_distributed joins no group, so
-                it is the one-process path), then a world-1 NCCL group, the
-                (1, 1) mesh, the row gather and the gradient sum through it;
-                (b) two gloo ranks sharing the card (NCCL refuses two ranks on
-                one device), each killed after DIST_TIMEOUT s: 2 data-parallel
-                train steps of configs/bench/ab_local_bf16.json at 64 rows a
-                rank (global 128) held to the one-process 128-row steps on the
-                concatenated batches (losses, parameters, the ranks' weights
-                identical), the bf16 forward and both backward kernels
-                launched on every rank and in the one-process run; the
-                1000-video gallery of the serve config embedded from two
-                loader shards and scored in two blocks of gallery rows, held
-                to [serve]'s embeddings and to one-process scoring of the same
-                embeddings (top-10 identical); one f32 tensor-parallel step
-                at mesh (1, 2) of ab_local_bf16.json's widths at depth 2
-                against the one-rank step. Times are of two processes sharing
-                one card and claim nothing about speed;
   7. train-ref — two deterministic train steps of the f32 smoke config on
                 the card and on the CPU from the same weights and batches:
                 losses, step-1 gradients and parameters must agree;
@@ -173,7 +155,37 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 medians of train, pretrain-fast (a bucket at a time) and the
                 f = 8 fine-tune against the card's dense bf16 peak; beside
                 them FlopCounterMode's count of one pre-training step (aten
-                ops only) against the model's towers and global sims.
+                ops only) against the model's towers and global sims;
+ 16. dist     — the parallel layer (parallel/mesh.py, parallel/tp.py), last,
+                so every phase before it runs as it did before the layer: (a)
+                NCCL at world size 1: the train CLI on the smoke config under
+                torchrun's environment (setup_distributed joins no group, so
+                it is the one-process path), then a world-1 NCCL group, the
+                (1, 1) mesh, the row gather and the gradient sum through it;
+                (b) two gloo ranks sharing the card (NCCL refuses two ranks on
+                one device), each killed after DIST_TIMEOUT s: 2 data-parallel
+                train steps of configs/bench/ab_local_bf16.json at 64 rows a
+                rank (global 128) held to the one-process 128-row steps on the
+                concatenated batches (losses, step-1 gradients, parameters,
+                the ranks' weights identical; the rank's gradient before the
+                sum, a planted fault, must fail the gradient limit), the bf16
+                forward and both backward kernels launched on every rank and
+                in the one-process run; the 1000-video gallery of the serve
+                config embedded from two loader shards and scored in two
+                blocks of gallery rows, held to [serve]'s embeddings and to
+                one-process scoring of the same embeddings (top-10
+                identical); one f32 tensor-parallel step at mesh (1, 2) of
+                ab_local_bf16.json's widths at depth 2 on 128 rows (the f32
+                kernels at phase 3's 128 x 128 shapes) against the one-rank
+                step. Times are of two processes sharing one card and claim
+                nothing about speed.
+With --torchrun, under torchrun on N cards (N even, one process a card,
+NCCL), only (b)'s checks run, each rank on its own card: data parallel at
+128 / N rows a rank, data and tensor parallel at mesh (N / 2, 2), the
+gallery over N ranks; then the host gathers' cost beside a busy card
+(through their gloo group and, as a comparison, through NCCL on the card)
+and one epoch of configs/bench/ab_local_bf16_fast.json at 128 / N rows a
+rank (its text buckets agreed across the ranks each step).
 Phase 3 also holds the backward kernels at the f = 8 shapes (32 x 32 items,
 (Ls, Lq) = (240, 99) and (99, 240)), and at 40 x 37 items where the partner
 loop is split raggedly over S blocks an item (resident and workspace
@@ -188,6 +200,7 @@ The line before the last is {"kernels": [...]}; the last line is
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -396,20 +409,39 @@ DIST_ROWS = 64  # rows a rank in the data-parallel train steps (global 128)
 DIST_STEPS = 2
 # data parallel at full width against the one-process 128-row steps, bf16
 # towers and local loss: the ranks run their towers on 64 rows, so bf16
-# products may round differently (TOL_TRAIN's bf16 limit for the loss); an
-# Adam update is close to lr * sign(g), so where a gradient is within
-# rounding of zero an element may move the other way in the two runs: up to
-# 2 * ADAM_STEP_MAX * lr a step apart (at betas 0.9 / 0.999 no update of the
-# first two steps exceeds 1.0014 lr), and the mean |change| over the model
-# must stay within DIST_PARAM_MEAN * lr (read 0.0174 lr on an H100 80GB
-# HBM3 at 700 W)
-ADAM_STEP_MAX = 1.01
+# products may round differently (TOL_TRAIN's bf16 limit for the loss).
+# The step-1 gradients, summed over the ranks, lie within DIST_GRAD_TOL of
+# the one-process gradients, tensor by tensor in 2-norm (|diff| / |value|).
+# The towers run in bf16 on other row counts, and the difference grows
+# through the backward: on an H100 80GB HBM3 at 700 W the object tower's
+# first weight, under 12 blocks, read 2.35e-2 (1.6e-2 its position embed
+# and CLS token), the text tower less. The faults the check is for read
+# 0.5 (a mean taken for the sum) and 1.22 (the sum skipped: the rank's
+# gradient before the sum, which the check reads as a planted fault and
+# which must lie beyond the limit, or the check sees nothing). The limit
+# sits 4x above the first and 5x below the second. Left out: the
+# attention key biases, whose exact gradient is zero (_exact_zero_grad).
+# Adam normalises the gradient, so a scale fault in the sum moves neither
+# the loss nor the parameters: only the gradients show it. An Adam update
+# is close to lr * sign(g), so where a gradient is within rounding of zero
+# an element may move the other way in the two runs; the mean |change|
+# over the model must stay within DIST_PARAM_MEAN * lr (read 0.0174 lr)
+DIST_GRAD_TOL = 0.1
 DIST_LOSS_RTOL = TOL_TRAIN["bf16"]
 DIST_PARAM_MEAN = 0.05
 # tensor parallelism: one f32 step of ab_local_bf16.json's widths at depth
-# DIST_TP_DEPTH in each tower, mesh (1, 2), against the one-rank step:
-# f32 summation order only (TRAIN_REF_LOSS_RTOL, TRAIN_REF_PARAM)
+# DIST_TP_DEPTH in each tower, mesh (1, 2), DIST_TP_ROWS rows (so the f32
+# kernels run at phase 3's 128 x 128 training shapes), against the one-rank
+# step: f32 summation order only (TRAIN_REF_LOSS_RTOL, TRAIN_REF_PARAM; a
+# parameter at most 2 * ADAM_STEP_MAX * lr from the one-rank step, as
+# opposite Adam moves can be: no update of the first steps exceeds 1.0014
+# lr at betas 0.9 / 0.999)
+ADAM_STEP_MAX = 1.01
 DIST_TP_DEPTH = 2
+DIST_TP_ROWS = 2 * DIST_ROWS
+# --torchrun: the card kept busy while a host gather is timed (about 0.1 s
+# at the H100's 1.98 GHz boost clock)
+SPIN_CYCLES = 200_000_000
 
 
 def log(msg: str) -> None:
@@ -1651,24 +1683,15 @@ def _mode_peak(bf16: bool):
                                            f"f32 FFMA {PEAK_F32_FLOPS:.3g}/s")
 
 
-def _kernel_names(fn, sessions: int = 3) -> list:
-    """Names of the CUDA kernels one call of fn launches, from the profiler.
-    A session that recorded no device kernel at all is opened again, up to
-    `sessions` times: on the card's torch 2.11.0+cu128 one such session
-    came back empty after six that saw every kernel (PR 11), which says
-    nothing of the kernels; the callers' checks of the names stand."""
+def _kernel_names(fn) -> list:
+    """Names of the CUDA kernels one call of fn launches, from the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    for session in range(1, sessions + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = sorted({e.key for e in prof.key_averages()
-                        if str(getattr(e, "device_type", "")).endswith("CUDA")})
-        if names:
-            return names
-        log(f"[timing] profiler session {session} of {sessions} recorded no device kernel")
-    return names
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")})
 
 
 def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device):
@@ -2723,9 +2746,11 @@ def _dist_batches(cfg: dict, index: int, count: int) -> list:
     return [prepare_batch(data, tok) for _, data in zip(range(DIST_STEPS), dl)]
 
 
-def _dist_steps(cfg: dict, device, mesh, batches) -> dict:
+def _dist_steps(cfg: dict, device, mesh, batches, grads: bool = False) -> dict:
     """DIST_STEPS deterministic train steps from the seeded init on `batches`:
-    losses, the kernels' launches, the parameters after the last step."""
+    losses, the kernels' launches, the parameters after the last step. With
+    `grads`, also step 1's gradients on the host: as the optimizer read them
+    ("grads") and as backward left them, before any sum over ranks ("pre")."""
     from demovlp_tpu_torch.cli import common
     from demovlp_tpu_torch.ops import xattn_kernel as xk
     from demovlp_tpu_torch.train.steps import batch_to_device, make_retrieval_train_step
@@ -2736,16 +2761,70 @@ def _dist_steps(cfg: dict, device, mesh, batches) -> dict:
                                      mesh=mesh)
     transfer = torch.bfloat16 if common.compute_dtype(cfg) == torch.bfloat16 else None
     lr = float(cfg["optimizer"]["args"]["lr"])
+    pre, hooks = {}, []
+    if grads:
+        hooks = [p.register_post_accumulate_grad_hook(
+            lambda p, n=n: pre.__setitem__(n, p.grad.detach().clone()))
+            for n, p in model.named_parameters() if p.requires_grad]
     torch.cuda.synchronize()
     xk.reset_launch_counts()
-    losses, times = [], []
+    losses, times, after = [], [], None
     for arrays in batches:
         t0 = time.perf_counter()
         m = step(batch_to_device(arrays, device, transfer), lr)
         losses.append(float(m["loss"]))
         times.append(time.perf_counter() - t0)
+        if hooks:
+            for h in hooks:
+                h.remove()
+            hooks = []
+            after = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            pre = {n: g.float().cpu() for n, g in pre.items()}
     return {"model": model, "losses": losses, "launches": dict(xk.LAUNCHES), "times": times,
-            "lr": lr}
+            "lr": lr, "grads": after, "pre": pre}
+
+
+def _exact_zero_grad(name: str, w: torch.Tensor) -> torch.Tensor:
+    """The elements whose gradient is zero in exact arithmetic: an attention
+    key bias adds q . b_k to every score of a query's row, which the row's
+    softmax cancels (DistilBERT's k_lin.bias, the k third of a fused qkv
+    bias). What the runs hold there is rounding, of no scale of its own."""
+    mask = torch.zeros_like(w, dtype=torch.bool)
+    if name.endswith("k_lin.bias"):
+        mask[:] = True
+    elif name.endswith("qkv.bias"):
+        d = w.shape[0] // 3
+        mask[d:2 * d] = True
+    return mask
+
+
+def _grads_against(got: dict, want: dict) -> dict:
+    """Each of want's tensors against got's, over the elements whose exact
+    gradient is not zero (a gradient missing from `got` counts as zeros):
+    "norm", the three worst by |got - want| / |want| (2-norms) as (ratio,
+    name); "max", the worst by max |got - want| / max |want|."""
+    def ratio(num: float, den: float) -> float:
+        return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+    rows, worst_max = [], (0.0, "")
+    for name, w in want.items():
+        keep = ~_exact_zero_grad(name, w)
+        if not keep.any():
+            continue
+        g = got[name][keep] if name in got else torch.zeros_like(w[keep])
+        w = w[keep].double()
+        d = g.double() - w
+        rows.append((ratio(float(d.norm()), float(w.norm())), name))
+        worst_max = max(worst_max, (ratio(float(d.abs().max()), float(w.abs().max())), name))
+    return {"norm": sorted(rows, reverse=True)[:3], "max": worst_max}
+
+
+def _zero_grad_max(grads: dict) -> tuple:
+    """(largest |gradient| on the exact-zero elements, largest anywhere)."""
+    zero = max((float(g[_exact_zero_grad(n, g)].abs().max()) for n, g in grads.items()
+                if _exact_zero_grad(n, g).any()), default=0.0)
+    return zero, max(float(g.abs().max()) for g in grads.values())
 
 
 def _params_against(got, want, lr: float, steps: int) -> dict:
@@ -2780,24 +2859,30 @@ def _dist_train(rank: int, cfg: dict, model_axis: int, steps: int) -> dict:
     device = torch.device("cuda", local_rank())
     mesh = create_mesh(model_axis, "cuda")
     d, n = data_coords(mesh)
-    run = _dist_steps(cfg, device, mesh, _dist_batches(cfg, d, n)[:steps])
+    compare = rank == 0 and model_axis == 1  # data parallel: hold the gradients too
+    run = _dist_steps(cfg, device, mesh, _dist_batches(cfg, d, n)[:steps], grads=compare)
     split = sum(hasattr(p, "placements") for p in run["model"].parameters())
     params = full_state_dict(run["model"])
     sums = host_allgather(np.asarray([[float(v.double().sum()) for v in params.values()]]))
     res = {"losses": run["losses"], "launches": run["launches"], "times": run["times"],
            "split": split, "ranks_equal": bool((sums == sums[:1]).all())}
     if rank == 0:
+        grads, pre = run["grads"], run["pre"]
         del run
         torch.cuda.empty_cache()
         shards = [_dist_batches(cfg, r, n)[:steps] for r in range(n)]
         glob = [{k: np.concatenate([s[i][k] for s in shards]) for k in shards[0][i]}
                 for i in range(steps)]
-        one = _dist_steps({**cfg, "mesh": {"model": 1}}, device, None, glob)
+        one = _dist_steps({**cfg, "mesh": {"model": 1}}, device, None, glob, grads=compare)
         want = {name: p.detach() for name, p in one["model"].named_parameters()}
         res.update(ref_losses=one["losses"], ref_launches=one["launches"],
                    ref_times=one["times"],
                    params=_params_against({k: params[k] for k in want}, want, one["lr"],
                                           steps))
+        if compare:
+            res.update(grads=_grads_against(grads, one["grads"]),
+                       fault=_grads_against(pre, one["grads"]),
+                       zero=(_zero_grad_max(grads), _zero_grad_max(one["grads"])))
     return res
 
 
@@ -2832,7 +2917,7 @@ def _dist_eval(rank: int, out: str) -> dict:
 
 def _tp_config(rows: int) -> dict:
     """ab_local_bf16.json's widths at depth DIST_TP_DEPTH in f32, mesh.model
-    2, `rows` rows a data rank."""
+    2, `rows` rows a data rank (DIST_TP_ROWS over the data ranks)."""
     cfg = json.loads(TRAIN_CFG.read_text())
     args = cfg["arch"]["args"]
     args["object_params"]["depth"] = DIST_TP_DEPTH
@@ -2859,11 +2944,21 @@ def check_dist_dp(ranks: list, where: str) -> None:
     p = r0["params"]
     log(f"[dist] dp one process, the {n} ranks' rows together: losses {r0['ref_losses']}, "
         f"step s {[round(t, 3) for t in r0['ref_times']]}, launches {r0['ref_launches']}")
+    (g_err, g_at), (f_err, f_at) = r0["grads"]["norm"][0], r0["fault"]["norm"][0]
+    top = ", ".join(f"{e:.3e} at {n}" for e, n in r0["grads"]["norm"])
+    log(f"[dist] dp vs one process, step-1 gradients summed over the ranks: |diff| / |value| "
+        f"per tensor, the worst: {top} (limit {DIST_GRAD_TOL:g}); by max |diff| / max |value| "
+        f"{r0['grads']['max'][0]:.3e} at {r0['grads']['max'][1]}; planted fault, rank 0's "
+        f"gradient before the sum: {f_err:.3e} at {f_at} (must exceed the limit), by max "
+        f"{r0['fault']['max'][0]:.3e}")
+    (dz, dg), (oz, og) = r0["zero"]
+    log(f"[dist] dp: the attention key biases' gradients (zero in exact arithmetic, left "
+        f"out above) reach {dz:.3e} summed over the ranks and {oz:.3e} in one process, "
+        f"against {dg:.3e} / {og:.3e} at the largest anywhere")
     log(f"[dist] dp vs one process after {steps} steps: parameters max |diff| "
-        f"{p['worst']:.3e} (limit {p['bound']:.3e}), mean |diff| {p['mean_over_lr']:.4f} lr "
-        f"(limit {DIST_PARAM_MEAN} lr), share beyond {TRAIN_REF_PARAM['atol']:g} + "
-        f"{TRAIN_REF_PARAM['rtol']:g}|p| {p['loose_share']:.3e}; ranks identical "
-        f"{r0['ranks_equal']}")
+        f"{p['worst']:.3e}, mean |diff| {p['mean_over_lr']:.4f} lr (limit {DIST_PARAM_MEAN} "
+        f"lr), share beyond {TRAIN_REF_PARAM['atol']:g} + {TRAIN_REF_PARAM['rtol']:g}|p| "
+        f"{p['loose_share']:.3e}; ranks identical {r0['ranks_equal']}")
     kernels = (xk.KERNEL_BF16, xk.KERNEL_DQ, xk.KERNEL_DC)
     for launches, what in [(res["launches"], f"rank {r}") for r, res in enumerate(ranks)] + [
             (r0["ref_launches"], "one process")]:
@@ -2874,7 +2969,11 @@ def check_dist_dp(ranks: list, where: str) -> None:
         for got, want in zip(res["losses"], r0["ref_losses"]):
             if not np.isfinite(got) or abs(got - want) > DIST_LOSS_RTOL * abs(want):
                 fail(f"[dist] dp loss {got} vs one process {want}")
-    if not r0["ranks_equal"] or p["worst"] > p["bound"] or p["mean_over_lr"] > DIST_PARAM_MEAN:
+    if not g_err <= DIST_GRAD_TOL:
+        fail(f"[dist] dp step-1 gradients disagree with the one-process step: {g_err} at {g_at}")
+    if not f_err > DIST_GRAD_TOL:
+        fail(f"[dist] dp gradient check blind: the unsummed gradient reads {f_err} at {f_at}")
+    if not r0["ranks_equal"] or p["mean_over_lr"] > DIST_PARAM_MEAN:
         fail(f"[dist] dp parameters disagree with the one-process steps: {p}")
 
 
@@ -2896,7 +2995,8 @@ def check_dist_tp(ranks: list, where: str) -> None:
         if res["split"] == 0 or min(res["launches"][k] for k in (xk.KERNEL, xk.KERNEL_DQ,
                                                                  xk.KERNEL_DC)) < 1:
             fail(f"[dist] tp rank {r}: nothing split or a kernel not launched: {res}")
-    log(f"[dist] tp vs one rank (depth {DIST_TP_DEPTH}, f32): loss {r0['ref_losses']}; "
+    log(f"[dist] tp vs one rank (depth {DIST_TP_DEPTH}, f32, {DIST_TP_ROWS} rows): loss "
+        f"{r0['ref_losses']}; "
         f"parameters max |diff| {p['worst']:.3e} (limit {p['bound']:.3e}), share beyond "
         f"{TRAIN_REF_PARAM['atol']:g} + {TRAIN_REF_PARAM['rtol']:g}|p| {p['loose_share']:.3e} "
         f"(limit {TRAIN_REF_PARAM['max_loose_share']:g}); ranks identical {r0['ranks_equal']}")
@@ -2981,8 +3081,129 @@ def phase_dist(tmp: Path, device, cat) -> None:
     if emb_err > TOL_BF16_CARD or not masks_equal:
         fail("[dist] the gathered embeddings disagree with [serve]'s")
 
-    check_dist_tp(_dist_spawn("tp", _dist_train, 2, "gloo", tmp, _tp_config(DIST_ROWS), 2, 1),
-                  where)
+    check_dist_tp(_dist_spawn("tp", _dist_train, 2, "gloo", tmp, _tp_config(DIST_TP_ROWS), 2,
+                              1), where)
+
+
+def _gather_results(res: dict, keys) -> list:
+    """Under torchrun: every rank's `keys` of `res`, in rank order; rank 0
+    keeps its whole result (the one-process comparison)."""
+    from demovlp_tpu_torch.parallel.mesh import host_allgather_pylist, process_index
+
+    ranks = host_allgather_pylist([{k: res[k] for k in keys}])
+    if process_index() == 0:
+        ranks[0] = res
+    return ranks
+
+
+def _host_gather_cost(device, reps: int = 5) -> dict:
+    """Median ms of one text-bucket agreement (all_reduce_max_int) issued
+    while the card runs a spin kernel of SPIN_CYCLES: through the host
+    gathers' gloo group, and the same integer all-gathered by NCCL on the
+    card and read back (the path the gloo group replaced), which waits for
+    the card."""
+    import torch.distributed as dist
+
+    from demovlp_tpu_torch.parallel.mesh import all_reduce_max_int, host_group, process_count
+
+    times = {"gloo": [], "nccl": []}
+    for _ in range(reps):
+        for path in times:
+            torch.cuda.synchronize()
+            dist.barrier(group=host_group())
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            if path == "gloo":
+                all_reduce_max_int(dist.get_rank())
+            else:
+                t = torch.tensor([dist.get_rank()], device=device)
+                parts = [torch.empty_like(t) for _ in range(process_count())]
+                dist.all_gather(parts, t)
+                max(int(x.cpu()) for x in parts)
+            times[path].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+
+
+def _torchrun_epoch(world: int, out: Path) -> dict:
+    """One epoch of the train CLI on ab_local_bf16_fast.json at 128 / world
+    rows a rank (16 steps of the global 128, fenced)."""
+    from demovlp_tpu_torch.cli.train import run
+    from demovlp_tpu_torch.parallel.mesh import process_index, sync_processes
+
+    cfg = json.loads(FAST_CFG.read_text())
+    cfg["data_loader"]["args"]["batch_size"] //= world
+    cfg["trainer"].update(epochs=1, save_dir=str(out / "fast"))
+    path = out / "fast.json"
+    if process_index() == 0:
+        path.write_text(json.dumps(cfg))
+    sync_processes()
+    trainer = run(["-c", str(path)], fence_steps=True)
+    return {"times": trainer.step_times, "losses": trainer.step_losses,
+            "lens": trainer.step_text_lens}
+
+
+def main_torchrun() -> None:
+    """Under torchrun on N cards (N even), one process a card, NCCL: [dist]'s
+    data-parallel, data-and-tensor-parallel and eval checks with each rank on
+    its own card, the host gathers' cost, one -fast epoch (see the module
+    docstring). Rank 0 checks; exit code 1 on any disagreement."""
+    from demovlp_tpu_torch.device import resolve_device
+    from demovlp_tpu_torch.parallel.mesh import (process_count, process_index,
+                                                 setup_distributed, sync_processes)
+
+    if os.environ.get("RANK", "0") == "0":
+        kind, card = phase_device()
+    device = resolve_device(None)
+    setup_distributed("nccl")
+    world, rank = process_count(), process_index()
+    if world < 2 or world % 2:
+        fail(f"--torchrun needs an even number of processes, not {world}")
+    out = ROOT / "chiprun_out" / "chip_smoke" / "torchrun"
+    if rank == 0:
+        out.mkdir(parents=True, exist_ok=True)
+        phase_build()
+    sync_processes()
+    where = f"{world} processes, one card each"
+    rows = 2 * DIST_ROWS // world
+    res = _dist_train(rank, dist_train_config(rows), 1, DIST_STEPS)
+    ranks = _gather_results(res, ("losses", "launches", "times", "split"))
+    if rank == 0:
+        check_dist_dp(ranks, where)
+    res = _dist_train(rank, _tp_config(DIST_TP_ROWS // (world // 2)), 2, 1)
+    ranks = _gather_results(res, ("losses", "launches", "times", "split"))
+    if rank == 0:
+        check_dist_tp(ranks, where)
+    res = _dist_eval(rank, str(out))
+    ranks = _gather_results(res, ("launches", "embed_s", "sims_s", "n_local"))
+    if rank == 0:
+        with np.load(out / "dist_cat.npz") as z:
+            dcat = {k: z[k] for k in z.files}
+        check_dist_eval(ranks, dcat, device, where)
+    cost = _host_gather_cost(device)
+    if rank == 0:
+        log(f"[torchrun] one bucket agreement beside a busy card (a spin of {SPIN_CYCLES:.0e} "
+            f"cycles), median of 5: through the gloo host group {cost['gloo']:.3f} ms, "
+            f"through NCCL on the card {cost['nccl']:.3f} ms")
+    epoch = _torchrun_epoch(world, out)
+    lens = _gather_results(epoch, ("lens",))
+    if rank == 0:
+        steps = epoch["times"]
+        log(f"[torchrun] -fast epoch, {world} ranks of {rows} rows: {len(steps)} steps, "
+            f"fenced step ms {[round(1e3 * t, 3) for t in steps]}, median of steps 2-"
+            f"{len(steps)} {1e3 * float(np.median(steps[1:])):.3f} ms; losses "
+            f"{[round(v, 5) for v in epoch['losses']]}; text lengths {epoch['lens']}")
+        if len(steps) != 16 or not np.isfinite(epoch["losses"]).all():
+            fail(f"[torchrun] -fast epoch: {len(steps)} steps, losses {epoch['losses']}")
+        if any(r["lens"] != FAST_EPOCH1_LENGTHS for r in lens):
+            fail(f"[torchrun] the ranks' text lengths {[r['lens'] for r in lens]} differ from "
+                 f"the one-process epoch's {FAST_EPOCH1_LENGTHS}")
+    sync_processes()
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(out)
+        log(f"[torchrun] done: {world} processes on {kind} ({card})")
 
 
 def main() -> None:
@@ -3012,7 +3233,6 @@ def main() -> None:
         cat, serve_launches = phase_serve(tmp)
         phase_bf16(tmp, cat)
         query = phase_query(tmp, cat, device)
-        phase_dist(tmp, device, cat)
         phase_train_ref(device)
         trainer, train_launches = phase_train(tmp, device)
         phase_record(tmp, trainer)
@@ -3057,6 +3277,11 @@ def main() -> None:
     phase_profile(trainer, device, out_dir)
     phase_mfu(card, device, {"train": trainer, "pretrain-fast": fast_trainer,
                              "finetune f=8": ft_trainer})
+    # last: every phase before it runs as it did before the parallel layer
+    del trainer, fast_trainer, ft_trainer, rd_trainer, inputs, rd_inputs
+    gc.collect()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        phase_dist(Path(tmp), device, cat)
     src = "demovlp_tpu_torch/csrc/"
     kernels = [{
         "name": "xattn_sim_fwd",
@@ -3178,4 +3403,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main_torchrun() if sys.argv[1:] == ["--torchrun"] else main()

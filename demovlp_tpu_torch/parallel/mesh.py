@@ -15,8 +15,12 @@ reference's per-GPU contract has it. Ranks that share a data coordinate
 
 `host_allgather_ragged` and `host_allgather_pylist` take an injectable
 `allgather`, as in the JAX package, so the CPU tests can simulate P
-processes. At one process every helper here returns at once: no
-collective and no copy.
+processes. The host gathers (text-bucket agreement, eval assembly) run
+over gloo groups of their own, made beside the world group and each data
+group: under nccl a host integer sent through the card would wait for
+every kernel already queued, and the trainer's one-step-late read of the
+metrics would be lost. At one process every helper here returns at once:
+no collective and no copy.
 """
 from __future__ import annotations
 
@@ -31,6 +35,10 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
+# the gloo group that carries the host gathers of each group, keyed by the
+# group's ranks (None: the world)
+_HOST_GROUPS: dict = {}
+
 
 def setup_distributed(backend: str) -> None:
     """Join torchrun's process group with `backend` ("nccl" or "gloo").
@@ -42,6 +50,8 @@ def setup_distributed(backend: str) -> None:
         torch.cuda.set_device(local_rank())
     dist.init_process_group(backend, init_method="env://", rank=int(os.environ["RANK"]),
                             world_size=world)
+    _HOST_GROUPS.clear()
+    _HOST_GROUPS[None] = _HOST_GROUPS[tuple(range(world))] = dist.new_group(backend="gloo")
 
 
 def local_rank() -> int:
@@ -70,8 +80,15 @@ def create_mesh(model: int = 1, device_type: str = "cuda"):
     world = process_count()
     if model < 1 or world % model:
         raise ValueError(f"mesh.model={model} does not divide the world size {world}")
-    return init_device_mesh(device_type, (world // model, model),
+    mesh = init_device_mesh(device_type, (world // model, model),
                             mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    if _HOST_GROUPS:
+        # every process makes every data group's gloo twin, in one order
+        for ranks in mesh.mesh.t().tolist():
+            key = tuple(ranks)
+            if len(key) > 1 and key not in _HOST_GROUPS:
+                _HOST_GROUPS[key] = dist.new_group(list(key), backend="gloo")
+    return mesh
 
 
 def data_coords(mesh) -> tuple:
@@ -109,12 +126,11 @@ def sync_processes() -> None:
         dist.barrier()
 
 
-def _collective_device() -> torch.device:
-    """Where host arrays travel for a collective: the card under nccl,
-    the CPU under gloo."""
-    if dist.get_backend() == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def host_group(group=None):
+    """The gloo group that carries `group`'s host gathers (default: the
+    world's); `group` itself where setup_distributed made none."""
+    key = None if group is None else tuple(dist.get_process_group_ranks(group))
+    return _HOST_GROUPS.get(key, group)
 
 
 def host_allgather(x, group=None) -> np.ndarray:
@@ -123,7 +139,11 @@ def host_allgather(x, group=None) -> np.ndarray:
     x = np.asarray(x)
     if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return x
-    t = torch.tensor(x, device=_collective_device())
+    group = host_group(group)
+    device = "cpu"
+    if dist.get_backend(group) == "nccl":  # a group made without setup_distributed
+        device = torch.device("cuda", torch.cuda.current_device())
+    t = torch.tensor(x, device=device)
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return np.concatenate([p.cpu().numpy() for p in parts], axis=0).reshape(-1, *x.shape[1:])

@@ -49,8 +49,9 @@ def _init():
             "qa": W.tiny_model("qa").state_dict()}
 
 
-def _ranks(out):
-    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+def _ranks(out, world: int = 2):
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +144,16 @@ def test_serving_gathers_in_dataset_order(dp):
 def test_text_bucket_agreement(tmp_path):
     W.spawn(W.bucket_case, 2, str(tmp_path))
     assert _ranks(str(tmp_path)) == [32, 32]
+
+
+def test_host_gathers_run_on_gloo_groups_of_their_own(tmp_path):
+    W.spawn(W.host_group_case, 4, str(tmp_path))
+    for rank, res in enumerate(_ranks(str(tmp_path), 4)):
+        data = [rank % 2, rank % 2 + 2]  # mesh (2, 2): data groups {0, 2} and {1, 3}
+        assert res["world_own"] and res["data_own"], res
+        assert res["backends"] == ["gloo", "gloo"]
+        assert res["data_ranks"] == data and res["gathered"] == data
+        assert res["max"] == 3
 
 
 def test_checkpoint_save_and_resume_on_both_ranks(tmp_path):

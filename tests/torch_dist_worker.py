@@ -211,6 +211,25 @@ def bucket_case(rank: int, out: str) -> None:
     torch.save(arrays["input_ids"].shape[1], os.path.join(out, f"rank{rank}.pt"))
 
 
+def host_group_case(rank: int, out: str) -> None:
+    """Mesh (2, 2) on four ranks: the world's and each data group's host
+    gathers run on gloo groups of their own, in rank order."""
+    import torch.distributed as dist
+
+    from demovlp_tpu_torch.parallel.mesh import (all_reduce_max_int, create_mesh, data_group,
+                                                 host_allgather, host_group)
+    mesh = create_mesh(2, "cpu")
+    group = data_group(mesh)
+    world_host, data_host = host_group(), host_group(group)
+    torch.save({"world_own": world_host is not None and world_host is not dist.group.WORLD,
+                "data_own": data_host is not group,
+                "backends": [dist.get_backend(world_host), dist.get_backend(data_host)],
+                "data_ranks": dist.get_process_group_ranks(data_host),
+                "gathered": host_allgather(np.asarray([rank]), group).tolist(),
+                "max": all_reduce_max_int(rank)},
+               os.path.join(out, f"rank{rank}.pt"))
+
+
 def checkpoint_case(rank: int, out: str, init: dict, model_axis: int) -> None:
     """One step, a save (rank 0 writes), a fresh model restored on every
     rank; each rank reports its restored weights and optimizer count."""
