@@ -85,7 +85,7 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 on the host as the trainer draws them), then 4 full-width
                 steps of the -fast config with mlm.weight 0.5;
   8e. remat   — one full-width step of ab_local_bf16.json with and without
-                remat from the same weights, batch and dropout seed: the
+                remat from the same weights, batch and dropout key: the
                 losses and the region tower's gradients agree, the peak
                 memory of each printed;
   9. train-local — on that run's first batch, the local loss and its
@@ -156,6 +156,27 @@ Phases, each fatal on failure (exit code != 0, and no result line):
                 f = 8 fine-tune against the card's dense bf16 peak; beside
                 them FlopCounterMode's count of one pre-training step (aten
                 ops only) against the model's towers and global sims;
+ 15b. resume — configs/bench/ab_local_bf16.json at full width with
+                precision.norm "bfloat16" and loss.args.local_block_segment
+                32: the bf16 forward and both backward kernels at 32 x 128 and
+                128 x 32 against their plain versions (reruns bit-identical,
+                a block's sims equal to the whole call's); one step blocked
+                and one unblocked from the same weights, batch and dropout
+                key (the loss bit for bit, the gradients within
+                RESUME_BLOCK_GRAD_TOL), and one with f32 norms (losses,
+                fenced step ms, kernel launches a step from torch.profiler);
+                the train CLI in process for 2 epochs of 4 steps with the
+                asynchronous save (launch counts reset just before and read
+                just after; its block-shape kernel times; each save's stall
+                on the training thread, its write's time, each epoch's wall
+                time); then the train CLI in a subprocess killed with
+                SIGKILL once epoch 1's .pth is committed, and the same
+                command again with trainer.resume "auto" and the blocking
+                save (trainer.async_checkpoint false; its save's stall and
+                epoch wall read from its log): its epoch-2 weights and AdamW
+                moments must equal the uninterrupted run's, which checks the
+                resume and the two save modes' files at once (the largest
+                difference printed);
  16. dist     — the parallel layer (parallel/mesh.py, parallel/tp.py), last,
                 so every phase before it runs as it did before the layer: (a)
                 NCCL at world size 1: the train CLI on the smoke config under
@@ -442,6 +463,47 @@ DIST_TP_ROWS = 2 * DIST_ROWS
 # --torchrun: the card kept busy while a host gather is timed (about 0.1 s
 # at the H100's 1.98 GHz boost clock)
 SPIN_CYCLES = 200_000_000
+
+
+# [resume]: configs/bench/ab_local_bf16.json at full width with
+# precision.norm "bfloat16" and loss.args.local_block_segment RESUME_SEGMENT,
+# 2 epochs of 4 steps of 128 (num_samples and max_samples_per_epoch
+# RESUME_SAMPLES; validation over RESUME_SAMPLES val rows after each
+# epoch), monitor "min val_loss_0" so that model_best.pth is copied when
+# validation improves. Each train CLI subprocess is killed after
+# RESUME_TIMEOUT s.
+RESUME_SEGMENT = 32
+RESUME_SAMPLES = 512
+RESUME_TIMEOUT = 420
+# blocked against unblocked, one bf16 step from the same weights, batch and
+# dropout key: the loss bit for bit (every sim is computed pair by pair).
+# The gradients tensor by tensor in 2-norm (|diff| / |value|): each block's
+# share of a caption's gradient leaves its direction rounded to bf16 and
+# the shares are summed after, and the backward kernels split a 32-item
+# call's partner loops by another S, so a gradient moves by bf16 rounding
+# (2^-8 relative a share), carried through the towers' backward: read
+# 8.9e-3 at most (a LayerNorm bias) in a CPU rehearsal at the smoke
+# config's widths with the bf16 local loss. A block left out or counted
+# twice moves a tensor's gradient by O(1).
+RESUME_BLOCK_GRAD_TOL = 5e-2
+# a block's backward against the whole call's with the cotangent zero
+# outside the block: the same pairs' shares, summed over S partials of
+# another split (f32 order only). Read on an H100 80GB HBM3 (700 W):
+# d_query 0.0, d_context 2.2e-7 of the largest entry at 32 x 128
+BLOCK_BWD_ORDER = TOL_TRAIN["f32"]
+# the flip allowance where a backward entry sums over a block's partners
+# (i2t d_query, t2i d_context): a focal near-tie flip moves one pair's
+# share, while the largest entry sums `segment` random-signed shares in
+# place of n, so against it a flip is sqrt(n / segment) times as large as
+# at n x n (2 at 32 of 128). Read on an H100 80GB HBM3 (700 W), focal
+# "equal", i2t d_query: 2.654e-2 of the largest |plain| at 32 x 128 over
+# 6.6e-5 of the entries, and bit for bit the same numbers from the 128 x
+# 128 call with the cotangent zero outside the block (no flip beyond 2e-3
+# in the prob cases)
+
+
+def block_flip_scale(n: int, segment: int) -> float:
+    return (n / segment) ** 0.5
 
 
 def log(msg: str) -> None:
@@ -1481,7 +1543,8 @@ def phase_mlm(tmp: Path, device) -> None:
 
 def phase_remat(device) -> None:
     """One full-width step of configs/bench/ab_local_bf16.json with and
-    without remat, from the same weights, batch and dropout seed: the
+    without remat, from the same weights, batch and dropout key (the
+    run's seed, step 0, data rank 0): the
     losses and the region tower's gradients (which the recompute feeds)
     must agree."""
     from demovlp_tpu_torch.cli import common
@@ -1501,7 +1564,6 @@ def phase_remat(device) -> None:
         step = make_retrieval_train_step(model, common.build_loss(cfg),
                                          common.build_optimizer(cfg, model.parameters()))
         batch = batch_to_device(prepare_batch(data, tok), device, torch.bfloat16)
-        torch.manual_seed(5)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1683,22 +1745,33 @@ def _mode_peak(bf16: bool):
                                            f"f32 FFMA {PEAK_F32_FLOPS:.3g}/s")
 
 
-def _kernel_names(fn) -> list:
-    """Names of the CUDA kernels one call of fn launches, from the profiler."""
+def _kernel_names(fn, attempts: int = 3) -> list:
+    """Names of the CUDA kernels one call of fn launches, from the profiler.
+    A session that records no device activity at all is the profiler's
+    collection failing, not fn (seen now and then on a session that
+    follows another closely), so fn runs again under a new session, up to
+    `attempts` sessions; the callers still fail unless the kernel is seen."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")})
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if str(getattr(e, "device_type", "")).endswith("CUDA")})
+        if names:
+            break
+        log(f"[profile] session {attempt + 1} of {attempts} recorded no device activity")
+    return names
 
 
-def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device):
+def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device,
+                       profile: bool = True):
     """The forward and the two backward kernels on a train run's first
     batch's local embeddings (rounded to bf16 in bf16 mode, as the loss
     rounds them), with a seeded cotangent; per train step each runs once a
-    direction. Rows keyed by kernel name."""
+    direction. With `profile` the profiler must see the kernels run (the
+    launch counts show it where that is off). Rows keyed by kernel name."""
     from demovlp_tpu_torch.ops import xattn_kernel as xk
 
     rnd = xk.round_bf16 if bf16 else (lambda t: t)
@@ -1719,7 +1792,7 @@ def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device):
         in_bytes = 4.0 * (bc * ls * d + bq * lq * d + bc * ls)
         _, fwd_ms = timed(lambda: xk.direction_sim(ctx, qry, cm, 20.0, eq, bf16), reps=5)
         _, fwd_plain = timed(lambda: xk.direction_sim_plain(ctx, qry, cm, 20.0, eq, bf16), reps=3)
-        if bf16:
+        if bf16 and profile:
             names = _kernel_names(lambda: [xk.direction_sim(ctx, qry, cm, 20.0, eq, True)
                                            for _ in range(2)])
             log(f"[timing] {tag} bf16 forward {direction}: S = "
@@ -1750,15 +1823,18 @@ def phase_timing_train(inputs, focal_equal: bool, bf16: bool, tag: str, device):
                 f"({flops:.3e} flop at {peak_text}, {nbytes:.3e} B{ffma}), "
                 f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
         splits = {k: xk.backward_plan(k, ctx, qry, bf16) for k in (xk.KERNEL_DQ, xk.KERNEL_DC)}
-        # two calls: a trace can miss a kernel of a single call (the launch
-        # counts, not the profiler, show that the kernels ran)
-        names = _kernel_names(lambda: [xk.direction_sim_bwd(*bargs) for _ in range(2)])
-        unseen = [k + sfx for k in (xk.KERNEL_DQ, xk.KERNEL_DC)
-                  for sfx in ("_kernel", "_reduce_kernel")
-                  if not any(k + sfx + "<" in n or k + sfx + "(" in n for n in names)]
+        seen = ""
+        if profile:
+            # two calls: a trace can miss a kernel of a single call (the
+            # launch counts, not the profiler, show that the kernels ran)
+            names = _kernel_names(lambda: [xk.direction_sim_bwd(*bargs) for _ in range(2)])
+            unseen = [k + sfx for k in (xk.KERNEL_DQ, xk.KERNEL_DC)
+                      for sfx in ("_kernel", "_reduce_kernel")
+                      if not any(k + sfx + "<" in n or k + sfx + "(" in n for n in names)]
+            seen = f"; profiler: device kernels {names}" + (
+                f"; not in the trace: {unseen}" if unseen else "")
         log(f"[timing] {tag} backward {direction}: (S, slots) d_query {splits[xk.KERNEL_DQ]}, "
-            f"d_context {splits[xk.KERNEL_DC]}; profiler: device kernels {names}"
-            + (f"; not in the trace: {unseen}" if unseen else ""))
+            f"d_context {splits[xk.KERNEL_DC]}{seen}")
         for k in (xk.KERNEL_DQ, xk.KERNEL_DC):
             rows[k].setdefault("splits", []).append(splits[k][0])
     for name, r in rows.items():
@@ -3042,6 +3118,347 @@ def dist_train_config(rows: int) -> dict:
     return cfg
 
 
+def phase_kernels_block(device, segment: int, n: int) -> dict:
+    """The blocked local loss's shapes: `segment` image items against n
+    captions (i2t) and n captions against `segment` images (t2i), D = 256,
+    (Ls, Lq) = (30, 99) / (99, 30), bf16 mode, both focal types. Each
+    kernel run twice and held bit-identical. The bf16 forward against its
+    plain version (TOL_TRAIN's bf16 limit with the flip allowance) and
+    equal, bit for bit, to the same pairs' sims in the n x n call. The
+    backward pair against the n x n call with the cotangent zero outside
+    the block (the same pairs' shares at another S: within BLOCK_BWD_ORDER
+    of the largest entry), and against its plain version at TOL_TRAIN's
+    bf16 limit with the flip allowance, scaled by block_flip_scale where an
+    entry sums over the block's `segment` partners (i2t d_query, t2i
+    d_context). The worst max abs error of each kernel."""
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    reg, rmask = _train_inputs(70, n, 30, 256, device)
+    wrd, wmask = _train_inputs(71, n, 99, 256, device)
+    r, w = xk.round_bf16(reg), xk.round_bf16(wrd)
+    rb, rbm = r[:segment].contiguous(), rmask[:segment].contiguous()
+    worst = {xk.KERNEL_BF16: 0.0, xk.KERNEL_DQ: 0.0, xk.KERNEL_DC: 0.0}
+    tol, flip = TOL_TRAIN["bf16"], (TOL_TRAIN_FLIP, MAX_TRAIN_FLIP_SHARE)
+    block_flip = (TOL_TRAIN_FLIP * block_flip_scale(n, segment), MAX_TRAIN_FLIP_SHARE)
+    for focal in ("prob", "equal"):
+        eq = focal == "equal"
+        for direction, args, whole_args in (("i2t", (rb, w, rbm), (r, w, rmask)),
+                                            ("t2i", (w, rb, wmask), (w, r, wmask))):
+            ctx, qry, cm = args
+            blk = (slice(0, segment), slice(None)) if direction == "i2t" else (
+                slice(None), slice(0, segment))
+            tag = f"block {ctx.shape[0]}x{qry.shape[0]} Ls={ctx.shape[1]} {direction} {focal} bf16"
+            got = xk.direction_sim(ctx, qry, cm, 20.0, eq, True)
+            if not torch.equal(got, xk.direction_sim(ctx, qry, cm, 20.0, eq, True)):
+                fail(f"{tag}: two bf16 forward runs differ (must be bit-identical)")
+            whole = xk.direction_sim(*whole_args, 20.0, eq, True)[blk]
+            if not torch.equal(got, whole):
+                fail(f"{tag}: the block's sims differ from the same pairs' sims in the "
+                     f"{n}x{n} call by up to {float((got - whole).abs().max())}")
+            worst[xk.KERNEL_BF16] = max(worst[xk.KERNEL_BF16], check_rel(
+                f"{tag} forward", got, xk.direction_sim_plain(ctx, qry, cm, 20.0, eq, True),
+                tol, *flip))
+            g = torch.randn(ctx.shape[0], qry.shape[0],
+                            generator=torch.Generator().manual_seed(72)).to(device)
+            bargs = (ctx, qry, cm, g, 20.0, eq, True)
+            dc, dq = xk.direction_sim_bwd(*bargs)
+            dc2, dq2 = xk.direction_sim_bwd(*bargs)
+            if not (torch.equal(dc, dc2) and torch.equal(dq, dq2)):
+                fail(f"{tag}: two backward runs differ (must be bit-identical)")
+            g_whole = torch.zeros(n, n, device=device)
+            g_whole[blk] = g
+            wdc, wdq = xk.direction_sim_bwd(*whole_args, g_whole, 20.0, eq, True)
+            wdc, wdq = (wdc[:segment], wdq) if direction == "i2t" else (wdc, wdq[:segment])
+            for name, x, y in (("d_context", dc, wdc), ("d_query", dq, wdq)):
+                rel = float((x - y).abs().max()) / (float(y.abs().max()) or 1.0)
+                log(f"[resume] {tag} {name}: against the {n}x{n} call with g zero outside the "
+                    f"block, max |diff| / max |value| {rel:.3e} (limit {BLOCK_BWD_ORDER:g})")
+                if rel > BLOCK_BWD_ORDER:
+                    fail(f"{tag} {name}: the block's backward differs from the whole call's "
+                         f"by {rel} of its largest entry")
+            pdc, pdq = xk.direction_sim_bwd_plain(*bargs)
+            log(f"[resume] {tag}: (S, slots) d_query {xk.backward_plan(xk.KERNEL_DQ, ctx, qry, True)}"
+                f", d_context {xk.backward_plan(xk.KERNEL_DC, ctx, qry, True)}, forward S "
+                f"{xk.bf16_forward_splits(ctx.shape[0], qry.shape[0], ctx.shape[1], qry.shape[1], 256)}")
+            # which output sums over the block's `segment` partners
+            dc_flip, dq_flip = (flip, block_flip) if direction == "i2t" else (block_flip, flip)
+            worst[xk.KERNEL_DC] = max(worst[xk.KERNEL_DC], check_backward(
+                f"{tag} d_context", dc, pdc, tol, dc_flip, None))
+            worst[xk.KERNEL_DQ] = max(worst[xk.KERNEL_DQ], check_backward(
+                f"{tag} d_query", dq, pdq, tol, dq_flip, None))
+    log(f"[resume] block shapes {segment}x{n} / {n}x{segment}: every kernel within its "
+        "limits, bit-identical on rerun, the block's results those of the whole call")
+    return worst
+
+
+def _resume_config(tmp: Path, tag: str, **trainer) -> Path:
+    """[resume]'s config file (RESUME_SEGMENT's comment) under tmp/<tag>."""
+    cfg = json.loads(TRAIN_CFG.read_text())
+    cfg["name"] = f"Resume_{tag}"
+    cfg["precision"]["norm"] = "bfloat16"
+    cfg["loss"]["args"]["local_block_segment"] = RESUME_SEGMENT
+    cfg["data_loader"]["args"]["object_params"]["num_samples"] = RESUME_SAMPLES
+    cfg["trainer"].update(epochs=2, max_samples_per_epoch=RESUME_SAMPLES, init_val=False,
+                          resume="auto", monitor="min val_loss_0", save_dir=str(tmp / tag),
+                          **trainer)
+    path = tmp / f"{tag}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def _run_dir(cfg_path: Path, stamp: str) -> Path:
+    cfg = json.loads(cfg_path.read_text())
+    return Path(cfg["trainer"]["save_dir"]) / "models" / cfg["name"] / stamp
+
+
+def _step_launches(fn) -> dict:
+    """{kernel name: launches} of one call of fn, from the profiler (device
+    kernels only: no copies or fills); empty where the session recorded no
+    device kernel, which the caller reports as not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not e.key.startswith(("Memcpy", "Memset"))}
+
+
+def _resume_steps(tmp: Path, device) -> dict:
+    """One full-width step of [resume]'s config three ways from the same
+    weights, batch and dropout key: blocked (bf16 norms), unblocked (bf16
+    norms) and blocked with f32 norms. Blocked against unblocked: the loss
+    bit for bit and the gradients within RESUME_BLOCK_GRAD_TOL. Each: the
+    first step's loss, the median of 5 more fenced steps, and the kernel
+    launches of one more step from the profiler."""
+    import copy
+
+    from demovlp_tpu_torch.cli import common
+    from demovlp_tpu_torch.train.steps import (batch_to_device, make_retrieval_train_step,
+                                               prepare_batch)
+
+    base = json.loads(_resume_config(tmp, "steps").read_text())
+    dl = common.init_dataloaders(base)[0][0]
+    dl.set_epoch(1)
+    data = next(iter(dl))
+    batch = batch_to_device(prepare_batch(data, common.build_tokenizer_from_config(base)),
+                            device, torch.bfloat16)
+    lr = float(base["optimizer"]["args"]["lr"])
+    res = {}
+    for tag, norm, segment in (("blocked", "bfloat16", RESUME_SEGMENT),
+                               ("unblocked", "bfloat16", 0),
+                               ("f32 norms", "float32", RESUME_SEGMENT)):
+        cfg = copy.deepcopy(base)
+        cfg["precision"]["norm"] = norm
+        cfg["loss"]["args"]["local_block_segment"] = segment
+        model = common.build_train_model(cfg, device, seed=0)
+        step = make_retrieval_train_step(model, common.build_loss(cfg),
+                                         common.build_optimizer(cfg, model.parameters()))
+        loss = float(step(batch, lr)["loss"])
+        grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch, lr)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        launches = _step_launches(lambda: step(batch, lr))
+        res[tag] = dict(loss=loss, grads=grads if tag != "f32 norms" else None,
+                        ms=float(np.median(times)), times=times, launches=launches)
+        del model, step, grads
+        torch.cuda.empty_cache()
+    a, b = res["blocked"], res["unblocked"]
+    log(f"[resume] one full-width step (f=1, k=30, batch 128, bf16 towers and local loss, "
+        f"bf16 norms): loss blocked ({RESUME_SEGMENT} rows a block) {a['loss']!r}, unblocked "
+        f"{b['loss']!r} (bit-identical: {a['loss'] == b['loss']})")
+    if not np.isfinite(a["loss"]) or a["loss"] != b["loss"]:
+        fail(f"[resume] blocked loss {a['loss']!r} != unblocked {b['loss']!r}")
+    worst, at, same = 0.0, "", 0
+    for name, g in b["grads"].items():
+        keep = ~_exact_zero_grad(name, g)  # rounding only there, of no scale
+        got = a["grads"][name]
+        d = float((got[keep] - g[keep]).norm()) / (float(g[keep].norm()) or 1.0)
+        same += int(torch.equal(got, g))
+        if d > worst:
+            worst, at = d, name
+        if not bool(torch.isfinite(got).all()) or d > RESUME_BLOCK_GRAD_TOL:
+            fail(f"[resume] blocked gradient {name}: |diff| / |g| {d} (limit "
+                 f"{RESUME_BLOCK_GRAD_TOL:g})")
+    log(f"[resume] step-1 gradients blocked vs unblocked, {len(b['grads'])} tensors: {same} "
+        f"bit-identical, worst |diff| / |g| {worst:.3e} at {at} (limit {RESUME_BLOCK_GRAD_TOL:g}; "
+        "the attention key biases, whose exact gradient is zero, left out)")
+    f32, bf = res["f32 norms"], res["blocked"]
+    n32, nbf, nub = (sum(r["launches"].values()) or "not measured (an empty profiler session)"
+                     for r in (f32, bf, b))
+    log(f"[resume] norms f32 vs bf16 (blocked): step-1 loss {f32['loss']!r} vs {bf['loss']!r}; "
+        f"fenced step median {f32['ms']:.3f} ms vs {bf['ms']:.3f} ms (5 steps each: "
+        f"{[round(t, 3) for t in f32['times']]} / {[round(t, 3) for t in bf['times']]}); "
+        f"kernel launches a step (profiler) {n32} vs {nbf}; unblocked bf16 norms "
+        f"{nub} launches, {b['ms']:.3f} ms")
+    moved = sorted(((f32["launches"].get(k, 0) - bf["launches"].get(k, 0), k)
+                    for k in set(f32["launches"]) | set(bf["launches"])),
+                   key=lambda x: -abs(x[0]))
+    for diff, key in moved[:8]:
+        if diff:
+            log(f"[resume]   launches f32 norms - bf16 norms {diff:+d}  {key[:110]}")
+    if not np.isfinite(f32["loss"]):
+        fail(f"[resume] non-finite loss with f32 norms: {f32['loss']}")
+    return dict(launches_f32=n32, launches_bf16=nbf, launches_unblocked=nub, ms_f32=f32["ms"],
+                ms_bf16=bf["ms"], ms_unblocked=b["ms"])
+
+
+def _ckpt_compare(got: Path, want: Path, what: str) -> float:
+    """The largest |difference| over two checkpoints' weights and AdamW
+    moments; fails unless every tensor and count is equal."""
+    a = torch.load(got, map_location="cpu", weights_only=True)
+    b = torch.load(want, map_location="cpu", weights_only=True)
+    if a["state_dict"].keys() != b["state_dict"].keys() or a["epoch"] != b["epoch"]:
+        fail(f"[resume] {what}: the checkpoints hold other keys or epochs")
+    worst, unequal = 0.0, []
+    pairs = [(f"state_dict.{k}", v, b["state_dict"][k]) for k, v in a["state_dict"].items()]
+    for i, st in a["optimizer"]["state"].items():
+        if st["count"] != b["optimizer"]["state"][i]["count"]:
+            unequal.append(f"optimizer.{i}.count")
+        pairs += [(f"optimizer.{i}.{k}", st[k], b["optimizer"]["state"][i][k])
+                  for k in ("mu", "nu")]
+    for name, x, y in pairs:
+        if not torch.equal(x, y):
+            unequal.append(name)
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    log(f"[resume] {what}: {len(pairs)} tensors, largest |difference| {worst!r}, "
+        f"{len(unequal)} unequal")
+    if unequal:
+        fail(f"[resume] {what}: {len(unequal)} tensors differ (first {unequal[:4]}), "
+             f"largest |difference| {worst}")
+    return worst
+
+
+def _train_cli_process(cfg: Path, stamp: str, log_path: Path) -> subprocess.Popen:
+    env = dict(os.environ, DEMOVLP_RUN_ID=stamp, PYTHONPATH=str(ROOT))
+    with open(log_path, "w") as out:
+        return subprocess.Popen([sys.executable, "-m", "demovlp_tpu_torch.cli.train",
+                                 "-c", str(cfg)], cwd=ROOT, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+
+
+def _in_process_run(cfg: Path, stamp: str):
+    from demovlp_tpu_torch.cli.train import run
+
+    os.environ["DEMOVLP_RUN_ID"] = stamp
+    try:
+        return run(["-c", str(cfg)])
+    finally:
+        del os.environ["DEMOVLP_RUN_ID"]
+
+
+def phase_resume(tmp: Path, device) -> dict:
+    """[resume]: the blocked local loss's kernels at their block shapes, one
+    step blocked against unblocked and with f32 against bf16 norms, then the
+    train CLI on [resume]'s config in process with the asynchronous save
+    (launch counts reset just before and read just after); then in
+    subprocesses a run killed with SIGKILL once epoch 1's .pth is committed
+    and the same command again with trainer.resume "auto" and the blocking
+    save, whose epoch-2 file must equal the in-process run's. Each save's
+    stall on the training thread, its write's time and each epoch's wall
+    time are printed."""
+    import signal
+
+    from demovlp_tpu_torch.ops import xattn_kernel as xk
+
+    batch = int(json.loads(TRAIN_CFG.read_text())["data_loader"]["args"]["batch_size"])
+    errs = phase_kernels_block(device, RESUME_SEGMENT, batch)
+    steps = _resume_steps(tmp, device)
+    cfg = _resume_config(tmp, "async")
+    torch.cuda.empty_cache()
+    xk.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = _in_process_run(cfg, "async")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(xk.LAUNCHES)
+    mgr = trainer.checkpoint
+    n_steps = len(trainer.step_losses)
+    log(f"[resume] async save: train CLI in process, {n_steps} steps of {batch} in 2 epochs, "
+        f"{wall:.1f} s wall; per epoch: wall {[round(t, 3) for t in trainer.epoch_times]} s, "
+        f"save() held the training thread {[round(r['stall_s'], 3) for r in mgr.saves]} s, "
+        f"the write took {[round(r['write_s'], 3) for r in mgr.saves]} s on the writer thread; "
+        f"losses {[round(x, 6) for x in trainer.step_losses]}; kernel launches {launches}")
+    if n_steps != 2 * RESUME_SAMPLES // batch or not all(np.isfinite(trainer.step_losses)):
+        fail(f"[resume] expected {2 * RESUME_SAMPLES // batch} finite losses, got "
+             f"{trainer.step_losses}")
+    # two directions a block, in every train step and, for the val
+    # loss, every validation batch (the forward only)
+    per_step = 2 * (batch // RESUME_SEGMENT)
+    val_batches = 2 * sum(len(dl) for dl in trainer.valid_data_loader)
+    for k, calls in ((xk.KERNEL_BF16, n_steps + val_batches), (xk.KERNEL_DQ, n_steps),
+                     (xk.KERNEL_DC, n_steps)):
+        if launches[k] != per_step * calls:
+            fail(f"[resume] {k} launched {launches[k]} times, not {per_step} a call of the "
+                 f"loss ({calls} calls) in {RESUME_SEGMENT}-row blocks")
+    if launches[xk.KERNEL] < 1:
+        fail("[resume] validation launched no f32 forward")
+    run = dict(launches=launches, wall=wall, epochs=list(trainer.epoch_times),
+               saves=[dict(r) for r in mgr.saves])
+    local = _first_batch_local(trainer)
+    for k in ("l_o", "o_mask"):
+        local[k] = local[k][:RESUME_SEGMENT].contiguous()
+    timing = phase_timing_train(local, True, True, f"resume block {RESUME_SEGMENT}x{batch}",
+                                device, profile=False)
+    del trainer, mgr
+    gc.collect()
+    a_dir = _run_dir(cfg, "async")
+    torch.cuda.empty_cache()
+    kill = _resume_config(tmp, "kill")
+    run1, run2 = _run_dir(kill, "run1"), _run_dir(kill, "run2")
+    proc = _train_cli_process(kill, "run1", tmp / "run1.log")
+    t0 = time.perf_counter()
+    try:
+        while not (run1 / "checkpoint-epoch1.pth").exists():
+            if proc.poll() is not None:
+                fail(f"[resume] the run to kill exited ({proc.returncode}) first:\n"
+                     + (tmp / "run1.log").read_text()[-3000:])
+            if time.perf_counter() - t0 > RESUME_TIMEOUT:
+                fail("[resume] epoch 1's checkpoint never appeared")
+            time.sleep(0.05)
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+    left = sorted(p.name for p in run1.iterdir() if p.name.startswith(("checkpoint", "model")))
+    log(f"[resume] killed the run with SIGKILL {time.perf_counter() - t0:.1f} s after its "
+        f"start, once checkpoint-epoch1.pth was committed; its directory holds {left}")
+    if (run1 / "checkpoint-epoch2.pth").exists():
+        fail("[resume] the kill came after epoch 2 was committed")
+    _ckpt_compare(run1 / "checkpoint-epoch1.pth", a_dir / "checkpoint-epoch1.pth",
+                  "epoch 1, the killed run (subprocess) vs the in-process run")
+    _resume_config(tmp, "kill", async_checkpoint=False)  # the relaunch saves blocking
+    proc = _train_cli_process(kill, "run2", tmp / "run2.log")
+    try:
+        rc = proc.wait(timeout=RESUME_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = (tmp / "run2.log").read_text()
+    if rc != 0 or "Resumed from" not in text or "checkpoint-epoch1.pth" not in text:
+        fail(f"[resume] the relaunch (exit {rc}) did not resume from epoch 1:\n{text[-3000:]}")
+    if (run2 / "checkpoint-epoch1.pth").exists():
+        fail("[resume] the relaunch trained epoch 1 again")
+    diff = _ckpt_compare(run2 / "checkpoint-epoch2.pth", a_dir / "checkpoint-epoch2.pth",
+                         "epoch 2, killed and resumed with the blocking save vs uninterrupted "
+                         "with the asynchronous save")
+    for line in text.splitlines():
+        if "held the training thread" in line or "written in" in line:
+            log(f"[resume] relaunch (blocking save): {line.strip()}")
+    return dict(errs=errs, timing=timing, launches=launches, steps=steps, run=run,
+                resume_diff=diff)
+
+
 def phase_dist(tmp: Path, device, cat) -> None:
     """[dist]: (a) NCCL at world size 1; (b) two gloo ranks on the one card:
     data-parallel train steps at full width, the sharded eval of the
@@ -3281,6 +3698,8 @@ def main() -> None:
     del trainer, fast_trainer, ft_trainer, rd_trainer, inputs, rd_inputs
     gc.collect()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        resume = phase_resume(Path(tmp), device)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         phase_dist(Path(tmp), device, cat)
     src = "demovlp_tpu_torch/csrc/"
     kernels = [{
@@ -3360,6 +3779,25 @@ def main() -> None:
                 "bound_by": r["bound_by"],
                 "library_ms": None,
             })
+    for name, (file, main_kernel, replaces) in sources.items():
+        if name == xk.KERNEL:
+            continue
+        r = resume["timing"][name]
+        norm = "l2norm_rows_bf16_kernel"
+        kernels.append({
+            "name": name + "_block",
+            "route": "cuda",
+            "source": src + file,
+            "launch": f"{norm} (context rows), {norm} (query rows), {main_kernel}",
+            "replaces": replaces,
+            "launches": resume["launches"][name],
+            "max_abs_err": resume["errs"][name],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
     kernels.append({
         "name": "grouped_attention",
         "route": "cuda",
@@ -3396,7 +3834,11 @@ def main() -> None:
         "row-norm kernel's time is included in ms; no single PyTorch call computes the local "
         "similarity, so its library_ms is null. grouped_attention: ms, plain_ms, bound_ms and "
         "library_ms (scaled_dot_product_attention) summed over one tower layer's four grouped "
-        "shapes in bf16; launches those of the attention-op phase")
+        "shapes in bf16; launches those of the attention-op phase; the _block rows (the "
+        f"blocked local loss, local_block_segment {RESUME_SEGMENT}): one block's two launches, "
+        f"{RESUME_SEGMENT} images x 128 captions and 128 x {RESUME_SEGMENT}, on [resume]'s "
+        "first batch (a step runs 128 / 32 = 4 blocks), launches those of [resume]'s "
+        "in-process 8-step async run, max_abs_err that of the block-shape checks")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

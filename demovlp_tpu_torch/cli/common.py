@@ -9,10 +9,24 @@ Every CLI runs one process per card under torchrun
 `setup_parallel` joins the process group (nccl on the card, gloo with
 `--device cpu`) and builds the (data, model) mesh from `mesh.model`, which
 must divide the world size; at one process there is no group and no
-mesh."""
+mesh.
+
+`ops.xattn_backend` (else DEMOVLP_XATTN_BACKEND, else "xla") names the
+JAX package's route for the local similarity and is checked against JAX
+`set_backend`'s values; on the card the port's route is the kernels
+(ops/xattn_kernel.py) whatever it names. With "xla" and
+`loss.args.local_dtype: "bfloat16"` the log says once that the port
+computes the Pallas path's bf16 numerics, not the XLA path's bf16 pipeline.
+
+The train CLIs seed nothing global once a process: each train step seeds
+torch's generators for its forward by (seed, optimizer step, data rank)
+and restores them after (train/steps.py), so a resumed run draws the
+dropout masks the uninterrupted run drew."""
 from __future__ import annotations
 
 import copy
+import logging
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -31,17 +45,18 @@ from demovlp_tpu_torch.metrics import qa as qa_metrics
 from demovlp_tpu_torch.metrics import retrieval as retrieval_metrics
 from demovlp_tpu_torch.models import (DistilBertConfig, ObjectMCRelation, ObjectQARelation,
                                       ObjectRelation)
+from demovlp_tpu_torch.ops.xattn_kernel import check_backend
 from demovlp_tpu_torch.parallel.mesh import (create_mesh, data_coords, host_allgather_pylist,
                                              is_main_process, process_count,
                                              setup_distributed)
 from demovlp_tpu_torch.parallel.tp import apply_tp
-from demovlp_tpu_torch.train.checkpoint import find_latest_checkpoint
 from demovlp_tpu_torch.train.optim import AdamW
 from demovlp_tpu_torch.train.steps import parse_text_buckets
 from demovlp_tpu_torch.utils.visualizer import RetrievalVis
 from demovlp_tpu_torch.utils.writer import MetricsWriter
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+logger = logging.getLogger(__name__)
 
 
 def mesh_model(config: Dict[str, Any]) -> int:
@@ -62,6 +77,7 @@ def setup_parallel(device_arg, config: Dict[str, Any]):
     `mesh.model` must divide the world size (JAX parallel/mesh.py:69-71)."""
     device = resolve_device(device_arg)
     model = mesh_model(config)
+    xattn_backend(config)
     setup_distributed("gloo" if device.type == "cpu" else "nccl")
     world = process_count()
     if model < 1 or world % model:
@@ -69,14 +85,40 @@ def setup_parallel(device_arg, config: Dict[str, Any]):
     return device, (create_mesh(model, device.type) if world > 1 else None)
 
 
-def compute_dtype(config: Dict[str, Any]) -> torch.dtype:
-    precision = config.get("precision", {}) or {}
-    if precision.get("norm", "float32") != "float32":
-        raise NotImplementedError("precision.norm other than float32 is not ported")
-    name = precision.get("compute", "float32")
+def xattn_backend(config: Dict[str, Any]) -> str:
+    """The JAX package's local-similarity route for this config:
+    `ops.xattn_backend`, else DEMOVLP_XATTN_BACKEND, else "xla" (JAX
+    cli/common.py:41-45, ops/xattn.py:40), each checked where it is set."""
+    env = os.environ.get("DEMOVLP_XATTN_BACKEND")
+    if env is not None:
+        check_backend("DEMOVLP_XATTN_BACKEND", env)
+    name = (config.get("ops", {}) or {}).get("xattn_backend")
+    if name:
+        check_backend("ops.xattn_backend", name)
+    backend = name or env or "xla"
+    local_dtype = ((config.get("loss", {}) or {}).get("args", {}) or {}).get("local_dtype")
+    if backend == "xla" and local_dtype == "bfloat16":
+        logger.info("xattn backend 'xla' with local_dtype bfloat16: the port computes the "
+                    "Pallas path's bf16 numerics (bf16 product operands, f32 elsewhere), "
+                    "not the XLA path's bf16 pipeline")
+    return backend
+
+
+def _precision(config: Dict[str, Any], key: str) -> torch.dtype:
+    name = (config.get("precision", {}) or {}).get(key, "float32")
     if name not in _DTYPES:
-        raise ValueError(f"precision.compute {name!r}: expected one of {sorted(_DTYPES)}")
+        raise ValueError(f"precision.{key} {name!r}: expected one of {sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+def compute_dtype(config: Dict[str, Any]) -> torch.dtype:
+    """`precision.compute`: the towers' product dtype."""
+    return _precision(config, "compute")
+
+
+def norm_dtype(config: Dict[str, Any]) -> torch.dtype:
+    """`precision.norm`: the towers' LayerNorm compute dtype (models/layers.py)."""
+    return _precision(config, "norm")
 
 
 _ARCHS = {cls.__name__: cls for cls in (ObjectRelation, ObjectQARelation, ObjectMCRelation)}
@@ -109,6 +151,7 @@ def build_model(config: Dict[str, Any]) -> ObjectRelation:
         projection_dim=int(args.get("projection_dim", 256)),
         attn_impl=obj_p.get("attn_impl") or "dense",
         compute_dtype=compute_dtype(config),
+        norm_dtype=norm_dtype(config),
     )
     for src, dst in (("embed_dim", "object_embed_dim"), ("depth", "object_depth"),
                      ("heads", "object_heads")):
@@ -260,12 +303,12 @@ def run_trainer(trainer_cls, description: str, val_split: str,
     """A train CLI: parse the command line, build everything from the
     config and run `trainer_cls` (RetrievalTrainer, QATrainer or MCTrainer).
     The run's scalars go to `<save_dir>/log/<name>/<stamp>/scalars.jsonl`
-    (closed when the run ends), its log to info.log beside them. Returns
-    the trainer with its `final_log`."""
+    (closed when the run ends), its log to info.log beside them. The last
+    asynchronous checkpoint write is waited for before it returns, also
+    when training raised. Returns the trainer with its `final_log`."""
     args = build_train_argparser(description).parse_args(argv)
     config = apply_overrides(read_config(args.config), args)
     device, mesh = setup_parallel(args.device, config)
-    torch.manual_seed(args.seed)  # dropout
     cfg_trainer = config["trainer"]
     main = is_main_process()
     # one stamp for the run: rank 0's
@@ -290,11 +333,14 @@ def run_trainer(trainer_cls, description: str, val_split: str,
     try:
         resume = args.resume or cfg_trainer.get("resume")
         if resume == "auto":
-            resume = find_latest_checkpoint(cfg_trainer.get("save_dir", "exps"), config["name"])
+            resume = trainer.checkpoint.latest(cfg_trainer.get("save_dir", "exps"), config["name"])
         if resume:
             trainer.resume(resume)
         trainer.final_log = trainer.train()
     finally:
-        if trainer.writer is not None:
-            trainer.writer.close()
+        try:
+            trainer.checkpoint.wait()
+        finally:
+            if trainer.writer is not None:
+                trainer.writer.close()
     return trainer

@@ -8,7 +8,8 @@ Runs `trainer.epochs` epochs of train steps (validation first when
 every epoch under `<trainer.save_dir>/models/<name>/<stamp>/`. `-r`, or
 `trainer.resume` in the config ("auto": the newest checkpoint of this
 config's runs), resumes weights, optimizer state and epoch. The weights
-start from a seeded random init (--seed, which also seeds dropout), then
+start from a seeded random init (--seed, which with the optimizer step
+and the data rank also keys dropout), then
 `arch.args.load_checkpoint` when set: a reference-schema `.pth` whose
 temporal embed is resized to the config's frame count
 (`arch.args.load_temporal_fix`: zeros, interp or bilinear), as an f = 8

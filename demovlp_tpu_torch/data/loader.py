@@ -19,8 +19,10 @@ index for index: the epoch's permutation is partitioned stably by
 caption-length class (the smallest of the trainer's `text_buckets`, else
 of `DEFAULT_TEXT_BUCKETS`, that holds the word count + 2 for [CLS] and
 [SEP]), and the batch order is then shuffled with
-`SeedSequence([seed, epoch, 1])`. The JAX loader's "sort" mode (kept there
-for measurement only) is not ported.
+`SeedSequence([seed, epoch, 1])`. `length_grouped: "sort"` (the JAX
+loader's measurement mode) sorts that permutation stably by exact caption
+length instead, `idx[argsort(lens[idx], kind="stable")]`, at the same place
+and with the same batch-order shuffle after.
 
 Shards (JAX loader.py:165-210): a train loader truncates the epoch's
 permutation to `per_process * P`, length-groups that global order (where
@@ -81,15 +83,17 @@ class RegionDataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, drop_last: bool = False, seed: int = 0,
                  process_index: Optional[int] = None, process_count: Optional[int] = None,
-                 length_grouped: bool = False,
+                 length_grouped: bool | str = False,
                  text_buckets: Optional[Sequence[int]] = None):
         if process_index is None or process_count is None:
             process_index, process_count = _process_index(), _process_count()
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} of {process_count}")
         self.process_index, self.process_count = process_index, process_count
-        if length_grouped not in (False, True):
-            raise NotImplementedError(f"length_grouped={length_grouped!r} is not ported")
+        if length_grouped not in (False, True, "sort"):
+            raise NotImplementedError(f"length_grouped={length_grouped!r}: expected a bool "
+                                      "or 'sort'")
+        self.length_group_mode = "sort" if length_grouped == "sort" else "class"
         self.length_grouped = bool(length_grouped and shuffle and drop_last)
         # the class edges: those the trainer trims to, so the two agree
         self.text_buckets = tuple(sorted(text_buckets or DEFAULT_TEXT_BUCKETS))
@@ -164,8 +168,11 @@ class RegionDataLoader:
 
     def _length_group(self, order: np.ndarray) -> np.ndarray:
         """The permutation partitioned stably by length class, the epoch's
-        random order kept within each class."""
+        random order kept within each class; in "sort" mode sorted stably
+        by exact length."""
         lens = np.asarray(self.dataset.text_lengths())
+        if self.length_group_mode == "sort":
+            return order[np.argsort(lens[order], kind="stable")]
         buckets = np.asarray(self.text_buckets)
         # class len(buckets): fits no bucket (pads to the full length)
         cls = np.searchsorted(buckets, lens[order] + _TOKENIZER_SPECIALS, side="left")
@@ -275,7 +282,7 @@ class MultiDistTextObjectVideoDataLoader(RegionDataLoader):
                  cut: Optional[str] = None, subsample: float = 1,
                  sliding_window_stride: int = -1, reader: str = "cv2", batch_size: int = 1,
                  num_workers: int = 1, shuffle: bool = True, drop_last: Optional[bool] = None,
-                 seed: int = 0, length_grouped: bool = False,
+                 seed: int = 0, length_grouped: bool | str = False,
                  text_buckets: Optional[Sequence[int]] = None,
                  process_index: Optional[int] = None, process_count: Optional[int] = None):
         dataset = dataset_object_loader(

@@ -7,8 +7,24 @@ The local scores go through `ops.xattn_kernel.xattn_score_kernel`: on the
 card the fused forward kernel and the two backward kernels, on the CPU
 their plain versions. That is the JAX package's `ops.xattn_backend:
 "pallas"` path; `local_dtype: "bfloat16"` selects the kernels' bf16 mode.
-The XLA-backend bf16 pipeline, `local_block_segment` (blockwise scores)
-and `local_remat` are not ported. `RWALoss.get_sim`, the multiple-choice
+The XLA-backend bf16 pipeline is not ported (the kernels' bf16 numerics
+stand in for it).
+
+`local_block_segment` (JAX `rwa_loss(block_segment=...)`): where
+`segment and B > segment and B % segment == 0`, the image rows are scored
+in blocks of `segment` rows against every caption, each block one call of
+`xattn_score_kernel` (the kernels on the card, at Bc = segment against
+Bq = B and the reverse), and the blocks' rows are concatenated. The kernels
+compute each sim pair by pair, so on the card the blocked sims equal the
+unblocked ones bit for bit; the plain versions' GEMMs sum in an order that
+follows the item counts, so on the CPU they agree to an f32 ulp or two.
+The captions' gradient is summed over the blocks by autograd, in another
+order than one call sums it. Otherwise the scores are unblocked,
+as in JAX. `local_remat` (JAX: recompute the score pipeline in the
+backward instead of storing its residuals) changes nothing here: the
+backward kernels and their plain versions already recompute the forward
+from the inputs and keep no residuals, so it is accepted and the loss and
+gradients are identical with it. `RWALoss.get_sim`, the multiple-choice
 score, runs the kernels' f32 mode. The cross-entropy takes bf16 logits to
 f32 first, where the JAX package computes it in the logits' dtype.
 """
@@ -46,16 +62,31 @@ def norm_softmax_loss(sim: torch.Tensor, temperature: float = 0.05,
     return -loss_i - loss_j
 
 
+def local_scores(im, s, im_mask, s_mask, lambda_softmax: float = 20.0,
+                 focal_type: str = "prob", compute_dtype: torch.dtype | None = None,
+                 block_segment: int = 0) -> torch.Tensor:
+    """(n_images, n_captions) local sims, in blocks of `block_segment` image
+    rows where that divides the batch and is smaller (module docstring)."""
+    b = im.shape[0]
+    if not (block_segment and b > block_segment and b % block_segment == 0):
+        return xattn_score_kernel(im, s, im_mask, s_mask, lambda_softmax, focal_type,
+                                  compute_dtype)
+    return torch.cat([
+        xattn_score_kernel(im[i:i + block_segment], s, im_mask[i:i + block_segment], s_mask,
+                           lambda_softmax, focal_type, compute_dtype)
+        for i in range(0, b, block_segment)])
+
+
 def rwa_loss(im, s, im_mask, s_mask=None, lambda_softmax: float = 20.0,
              focal_type: str = "prob", compute_dtype: torch.dtype | None = None,
-             valid: torch.Tensor | None = None) -> torch.Tensor:
+             valid: torch.Tensor | None = None, block_segment: int = 0) -> torch.Tensor:
     """Region-word alignment loss: KL(softmax(lambda * scores) || ~identity),
     the labels entering as log(labels + 1e-6). im (B, R, D) regions, s
     (B, W, D) words, additive masks."""
     if s_mask is None:
         s_mask = torch.zeros(s.shape[:2], dtype=torch.float32, device=s.device)
-    scores = xattn_score_kernel(im, s, im_mask, s_mask, lambda_softmax, focal_type,
-                                compute_dtype)
+    scores = local_scores(im, s, im_mask, s_mask, lambda_softmax, focal_type, compute_dtype,
+                          block_segment)
     labels = torch.eye(im.shape[0], dtype=scores.dtype, device=scores.device)
     log_labels = torch.log(labels + 1e-6)
     if valid is None:
@@ -112,6 +143,7 @@ class RWALoss:
     margin: float = 0.0  # parity field; unused (the reference never uses it)
     max_violation: bool = False  # parity field; unused
     local_dtype: str = "float32"
+    block_segment: int = 0
 
     def __post_init__(self):
         if self.local_dtype not in _LOCAL_DTYPES:
@@ -121,7 +153,7 @@ class RWALoss:
     def __call__(self, im, s, im_mask, s_lens=None, s_mask=None, valid=None):
         # s_lens: accepted for call-surface parity, never used
         return rwa_loss(im, s, im_mask, s_mask, self.lambda_softmax, self.focal_type,
-                        _LOCAL_DTYPES[self.local_dtype], valid)
+                        _LOCAL_DTYPES[self.local_dtype], valid, self.block_segment)
 
     def get_sim(self, im, s, im_mask, s_lens=None, s_mask=None):
         """(n_images, n_captions) local sims, f32 mode."""
@@ -144,19 +176,20 @@ class GlobalLocalLoss:
     coef: float = 1000.0
     local_block_segment: int = 0
     local_dtype: str = "float32"
-    local_remat: bool = False
+    local_remat: bool = False  # accepted; changes nothing (module docstring)
     global_loss: NormSoftmaxLoss = field(init=False)
     local_loss: RWALoss = field(init=False)
 
     def __post_init__(self):
-        if self.local_block_segment or self.local_remat:
-            raise NotImplementedError(
-                "local_block_segment and local_remat (XLA-path options) are not ported"
-            )
+        seg = self.local_block_segment
+        if isinstance(seg, bool) or not isinstance(seg, int) or seg < 0:
+            raise ValueError(f"loss.args.local_block_segment {seg!r}: expected an integer >= 0")
+        if not isinstance(self.local_remat, bool):
+            raise ValueError(f"loss.args.local_remat {self.local_remat!r}: expected a bool")
         object.__setattr__(self, "global_loss", NormSoftmaxLoss(self.temperature))
         object.__setattr__(self, "local_loss", RWALoss(
             self.lambda_softmax, self.focal_type, self.margin, self.max_violation,
-            self.local_dtype))
+            self.local_dtype, seg))
 
     def __call__(self, global_sim, local_im, local_s, local_im_mask, local_s_lens,
                  local_s_mask, valid=None):

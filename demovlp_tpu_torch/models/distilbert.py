@@ -8,12 +8,15 @@ Numerics kept from the JAX tower: embeddings are gathered and normalised in
 f32 and only then cast to the compute dtype; q is divided by sqrt(head_dim)
 in the compute dtype; padded keys get a -1e9 bias; attention logits and
 softmax are f32 and the probabilities are cast to the compute dtype before
-the PV product; GELU is exact; LayerNorm eps is 1e-12 with f32 statistics.
+the PV product; GELU is exact; LayerNorm eps is 1e-12, its statistics in
+`norm_dtype` (f32 by default; `precision.norm: "bfloat16"` normalises in
+bf16 where JAX passes its `norm_dtype`: the embedding norm and both norms
+of every block).
 
 Dropout (p = 0.1, active only in `train()` mode, drawn from torch's global
-generator) sits where the JAX tower has it: on the embeddings after their
-LayerNorm, on the attention probabilities, and on the FFN output. There is
-none on `out_lin`.
+generator, which the train step seeds per step: train/steps.py) sits where
+the JAX tower has it: on the embeddings after their LayerNorm, on the
+attention probabilities, and on the FFN output. There is none on `out_lin`.
 """
 from __future__ import annotations
 
@@ -41,11 +44,11 @@ class DistilBertConfig:
 
 
 class Embeddings(nn.Module):
-    def __init__(self, cfg: DistilBertConfig):
+    def __init__(self, cfg: DistilBertConfig, norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.dim)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.dim)
-        self.LayerNorm = LayerNormFp32(cfg.dim, eps=cfg.layer_norm_eps)
+        self.LayerNorm = LayerNormFp32(cfg.dim, eps=cfg.layer_norm_eps, compute_dtype=norm_dtype)
         self.dropout = nn.Dropout(cfg.dropout)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -94,12 +97,15 @@ class FFN(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, cfg: DistilBertConfig, compute_dtype: torch.dtype):
+    def __init__(self, cfg: DistilBertConfig, compute_dtype: torch.dtype,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.attention = MultiHeadSelfAttention(cfg, compute_dtype)
-        self.sa_layer_norm = LayerNormFp32(cfg.dim, eps=cfg.layer_norm_eps)
+        self.sa_layer_norm = LayerNormFp32(cfg.dim, eps=cfg.layer_norm_eps,
+                                           compute_dtype=norm_dtype)
         self.ffn = FFN(cfg, compute_dtype)
-        self.output_layer_norm = LayerNormFp32(cfg.dim, eps=cfg.layer_norm_eps)
+        self.output_layer_norm = LayerNormFp32(cfg.dim, eps=cfg.layer_norm_eps,
+                                               compute_dtype=norm_dtype)
 
     def forward(self, x: torch.Tensor, add_bias: torch.Tensor) -> torch.Tensor:
         x = self.sa_layer_norm(x + self.attention(x, add_bias))
@@ -107,10 +113,11 @@ class TransformerBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: DistilBertConfig, compute_dtype: torch.dtype):
+    def __init__(self, cfg: DistilBertConfig, compute_dtype: torch.dtype,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layer = nn.ModuleList(
-            TransformerBlock(cfg, compute_dtype) for _ in range(cfg.n_layers)
+            TransformerBlock(cfg, compute_dtype, norm_dtype) for _ in range(cfg.n_layers)
         )
 
     def forward(self, x: torch.Tensor, add_bias: torch.Tensor) -> torch.Tensor:
@@ -121,12 +128,13 @@ class Transformer(nn.Module):
 
 class DistilBertModel(nn.Module):
     def __init__(self, cfg: DistilBertConfig = DistilBertConfig(),
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = cfg
         self.compute_dtype = compute_dtype
-        self.embeddings = Embeddings(cfg)
-        self.transformer = Transformer(cfg, compute_dtype)
+        self.embeddings = Embeddings(cfg, norm_dtype)
+        self.transformer = Transformer(cfg, compute_dtype, norm_dtype)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """input_ids (B, L) int; attention_mask (B, L) 1/0 ->

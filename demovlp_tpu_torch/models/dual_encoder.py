@@ -15,6 +15,9 @@ last hidden state (Hugging Face DistilBertForMaskedLM's names:
 `mlm_head.vocab_transform`, `vocab_layer_norm`, `vocab_projector`); only a
 forward that asks for it (`mlm=True`, the MLM train step) runs it, so eval
 and serving never pay for the vocabulary projection.
+
+`norm_dtype` (`precision.norm`) is the LayerNorm compute dtype of both
+towers, as JAX passes it; the MLM head's norm stays f32, as in JAX.
 """
 from __future__ import annotations
 
@@ -52,9 +55,9 @@ class ObjectRelation(nn.Module):
                  object_embed_dim: int = 768, object_depth: int = 12,
                  object_heads: int = 12, attn_impl: str = "dense",
                  compute_dtype: torch.dtype = torch.float32, with_mlm: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, norm_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.text_model = DistilBertModel(text_config, compute_dtype)
+        self.text_model = DistilBertModel(text_config, compute_dtype, norm_dtype)
         self.txt_proj = nn.Sequential(
             nn.ReLU(),
             Dense(text_config.dim, projection_dim, compute_dtype=compute_dtype),
@@ -64,7 +67,7 @@ class ObjectRelation(nn.Module):
             output_dim=projection_dim, time_module=time_module or None,
             embed_dim=object_embed_dim, depth=object_depth,
             num_heads=object_heads, attn_impl=attn_impl,
-            compute_dtype=compute_dtype, remat=remat,
+            compute_dtype=compute_dtype, remat=remat, norm_dtype=norm_dtype,
         )
         # registered last, so the seeded init of the other parameters is
         # the same with and without the head

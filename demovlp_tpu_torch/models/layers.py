@@ -29,16 +29,37 @@ class Dense(nn.Linear):
 
 
 class LayerNormFp32(nn.LayerNorm):
-    """LayerNorm with f32 statistics and f32 params under any compute dtype;
-    the result is cast back to the input dtype. Region-tower eps is 1e-6."""
+    """LayerNorm with f32 params and a compute dtype (`precision.norm`, JAX
+    `LayerNormFp32(dtype=...)`); the result is cast back to the input's
+    dtype. float32, the default, keeps the reference's f32 statistics under
+    any model compute dtype (one layer_norm kernel). bfloat16 takes the
+    norm as flax's LayerNorm(dtype=bf16, force_float32_reductions=False)
+    does: the input cast to bf16; E[x] and E[x^2] (of the bf16 squares)
+    each accumulated in f32 and rounded to bf16; var = max(0, E[x^2] -
+    E[x]^2), x - E[x] and rsqrt(var + eps) in bf16 (each rounded once); then
+    the f32 scale and bias applied in f32 and one rounding to bf16. It is a composition of
+    elementwise ops and two reductions, so it costs launches where the f32
+    norm is one kernel: an option for the JAX package's numerics, not for
+    speed. Region-tower eps is 1e-6."""
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=eps)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                         self.bias, self.eps)
-        return y.to(x.dtype)
+        cd = self.compute_dtype
+        if cd == torch.float32:
+            y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+            return y.to(x.dtype)
+        h = x.to(cd)
+        mu = h.float().mean(-1, keepdim=True).to(cd)
+        mu2 = (h * h).float().mean(-1, keepdim=True).to(cd)
+        var = torch.clamp(mu2 - mu * mu, min=0.0) + self.eps
+        # rsqrt taken in f32 and rounded (torch's bf16 rsqrt on the CPU is off by an ulp)
+        mul = torch.rsqrt(var.float()).to(cd).float() * self.weight
+        y = (h - mu).float() * mul + self.bias
+        return y.to(cd).to(x.dtype)
 
 
 class Mlp(nn.Module):

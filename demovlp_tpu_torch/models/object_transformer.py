@@ -19,6 +19,9 @@ At one group (space at F=1, time at K=1) both take the plain path.
 activations (torch.utils.checkpoint, non-reentrant, the RNG state kept so
 any dropout recomputes identically): the same values and gradients, less
 memory, one more forward of the blocks.
+
+`norm_dtype` is each block's LayerNorm compute dtype (norm1, norm2 and,
+with time attention, norm3, where JAX passes its `norm_dtype`).
 """
 from __future__ import annotations
 
@@ -132,15 +135,16 @@ class SpaceTimeBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, time_module: Optional[str] = None,
                  attn_impl: str = "dense",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.has_time = time_module == "timeattn"
         if self.has_time:
-            self.norm3 = LayerNormFp32(dim)
+            self.norm3 = LayerNormFp32(dim, compute_dtype=norm_dtype)
             self.timeattn = VarAttention(dim, num_heads, attn_impl, compute_dtype)
-        self.norm1 = LayerNormFp32(dim)
+        self.norm1 = LayerNormFp32(dim, compute_dtype=norm_dtype)
         self.attn = VarAttention(dim, num_heads, attn_impl, compute_dtype)
-        self.norm2 = LayerNormFp32(dim)
+        self.norm2 = LayerNormFp32(dim, compute_dtype=norm_dtype)
         self.mlp = Mlp(dim, MLP_RATIO * dim, compute_dtype)
 
     def forward(self, x, add_mask, frames: int, patches: int):
@@ -162,7 +166,8 @@ class ObjectTransformer(nn.Module):
                  output_dim: int = 256, time_module: Optional[str] = None,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  attn_impl: str = "dense",
-                 compute_dtype: torch.dtype = torch.float32, remat: bool = False):
+                 compute_dtype: torch.dtype = torch.float32, remat: bool = False,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.remat = remat
@@ -175,7 +180,7 @@ class ObjectTransformer(nn.Module):
         self.object_embedding = Dense(APPEARANCE_DIM, d, compute_dtype=compute_dtype)
         self.pos_embedding = Dense(GEOMETRY_DIM, d, compute_dtype=compute_dtype)
         self.blocks = nn.ModuleList(
-            SpaceTimeBlock(d, num_heads, time_module, attn_impl, compute_dtype)
+            SpaceTimeBlock(d, num_heads, time_module, attn_impl, compute_dtype, norm_dtype)
             for _ in range(depth)
         )
         self.proj = Dense(d, output_dim, bias=False, compute_dtype=compute_dtype)

@@ -38,6 +38,10 @@ import torch
 from demovlp_tpu_torch.ops import cuda_build
 
 _EPS = 1e-8
+#: the values of JAX's `ops.xattn.set_backend` (`ops.xattn_backend`,
+#: `eval.xattn_backend`, DEMOVLP_XATTN_BACKEND). The port reads and checks
+#: them; its route on the card is these kernels whichever is named.
+XATTN_BACKENDS = ("xla", "pallas", "auto")
 KERNEL = "xattn_sim_fwd"  # forward, f32 mode
 KERNEL_BF16 = "xattn_sim_fwd_bf16"  # forward, bf16 mode (same source)
 KERNEL_DQ = "xattn_sim_bwd_dq"
@@ -391,6 +395,14 @@ def _launch_bwd(name: str, context, query, ctx_mask, g, lam: float, focal_equal:
                            f"cudaError_t {err}")
     _count(name, ls, lq)
     return out
+
+
+def check_backend(key: str, value: str) -> str:
+    """`value` of the setting `key` when it is one of XATTN_BACKENDS; else
+    ValueError naming the key."""
+    if value not in XATTN_BACKENDS:
+        raise ValueError(f"{key}={value!r}: expected one of {list(XATTN_BACKENDS)}")
+    return value
 
 
 def _device_of(context) -> str:

@@ -152,12 +152,13 @@ def local_block(param: torch.Tensor, full: torch.Tensor, perm=None) -> torch.Ten
 
 
 def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The model's state dict whole, in the reference layout, on the CPU."""
+    """The model's state dict whole, in the reference layout, copied to the
+    host (a later in-place update does not reach it)."""
     perms = _perm_of(model)
     out = {}
     for k, v in model.state_dict().items():
         local = v.to_local() if isinstance(v, DTensor) else v
-        out[k] = full_tensor(v, local.detach(), perms.get(k)).cpu()
+        out[k] = full_tensor(v, local.detach(), perms.get(k)).to("cpu", copy=True)
     return out
 
 

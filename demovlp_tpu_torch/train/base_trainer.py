@@ -8,8 +8,13 @@ Reference behaviour kept:
     monitoring with a warning;
   * a checkpoint is saved EVERY epoch (`save_period` is accepted and, as in
     the reference, gates nothing), and copied to model_best on improvement;
+    by default asynchronously (`trainer.async_checkpoint`, train/checkpoint.py):
+    the next epoch trains while a thread writes the file, and `train()`
+    waits for the last write before it returns;
   * `early_stop` is read and, as in the reference, never breaks the loop;
-  * resume restores weights, optimizer state, epoch and monitor_best;
+  * resume restores weights, optimizer state, epoch and monitor_best; the
+    optimizer's update count keys the dropout (train/steps.py), so a run
+    resumed after epoch N reaches the uninterrupted run's state exactly;
   * the epoch logs and the resume line go to the "trainer" logger (the
     console and the run's info.log, utils/logging.py); `writer` takes the
     run's scalars and `visualizer` the retrieval rankings (either may be
@@ -23,6 +28,7 @@ and restores through the checkpoint manager, which writes on rank 0.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -45,7 +51,7 @@ class BaseTrainer:
         self.schedule = list(schedule)
         self.learning_rate1 = learning_rate1
         self.lr_mode = lr_mode
-        self.rng_seed = rng_seed  # the run's --seed (host-side draws, e.g. MLM masks)
+        self.rng_seed = rng_seed  # the run's --seed (dropout keys, MLM masks)
         self.logger = logging.getLogger("trainer")
         self.writer = writer
         self.visualizer = visualizer
@@ -65,7 +71,11 @@ class BaseTrainer:
                 raise ValueError(f"monitor mode {self.mnt_mode!r}: expected min or max")
             self.mnt_best = np.inf if self.mnt_mode == "min" else -np.inf
         self.start_epoch = 1
-        self.checkpoint = CheckpointManager(save_dir, arch=type(model).__name__, config=config)
+        self.checkpoint = CheckpointManager(
+            save_dir, arch=type(model).__name__, config=config,
+            async_save=bool(cfg_trainer.get("async_checkpoint", True)))
+        # each epoch's wall time (its train steps, validation and save() call)
+        self.epoch_times: List[float] = []
 
     def _train_epoch(self, epoch: int) -> Optional[Dict[str, Any]]:
         raise NotImplementedError
@@ -106,6 +116,7 @@ class BaseTrainer:
             self._valid_epoch(-1)
         final_log: Dict[str, Any] = {}
         for epoch in range(self.start_epoch, self.epochs + 1):
+            t0 = time.perf_counter()
             log = self._flatten_log(epoch, self._train_epoch(epoch))
             for key, value in log.items():
                 if self.is_main:
@@ -122,5 +133,12 @@ class BaseTrainer:
                     best = True
             self.checkpoint.save(self.model, self.optimizer, epoch, self.mnt_best,
                                  save_best=best)
+            self.epoch_times.append(time.perf_counter() - t0)
+            if self.is_main:
+                self.logger.info("epoch %d: %.3f s wall; save() held the training thread "
+                                 "%.3f s (%s)", epoch, self.epoch_times[-1],
+                                 self.checkpoint.last_save["stall_s"],
+                                 "async" if self.checkpoint.async_save else "blocking")
             final_log = log
+        self.checkpoint.wait()
         return final_log

@@ -51,7 +51,8 @@ class QATrainer(BaseTrainer):
         self.text_buckets = parse_text_buckets(config["trainer"])
         self.valid_label2ans = [dl.dataset.label2ans for dl in self.valid_data_loader]
         self.valid_qid2data = [dl.dataset.qid2data for dl in self.valid_data_loader]
-        self._train_step = make_qa_train_step(model, loss, optimizer, mesh=self.mesh)
+        self._train_step = make_qa_train_step(model, loss, optimizer, mesh=self.mesh,
+                                              dropout_seed=self.rng_seed)
         self._eval_step = make_qa_eval_step(model)
 
     def _train_epoch(self, epoch: int) -> Dict[str, Any]:

@@ -17,7 +17,11 @@ global cosine sims plus the local sims through the f32 forward kernel
 orientation quirk is kept — global(text, video) + local(video, text) summed
 elementwise — and MSCOCO-named configs take every 5th video row. The
 visualizer (when configured) renders the rankings, and the writer takes
-`loss_val_{dl}`.
+`loss_val_{dl}`. `eval.xattn_backend` (JAX's eval route, default "auto")
+is checked against JAX `set_backend`'s values, and `eval.local_sim_segment`
+(JAX's eval tiling of the local sims, default 64) is checked to be a
+positive integer; the port's eval runs the kernel either way, chunked by
+parallel/sharded_eval.py, which does that knob's job.
 
 Across processes (JAX retrieval.py:288-312): each data rank embeds its
 loader shard, drops the pad rows and wrapped duplicates, and the
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from demovlp_tpu_torch.data.mlm import mask_batch_text_tokens
+from demovlp_tpu_torch.ops.xattn_kernel import check_backend
 from demovlp_tpu_torch.parallel.mesh import (data_allgather, host_allgather_pylist,
                                              host_allgather_ragged)
 from demovlp_tpu_torch.serve import EMBED_KEYS, OUT_KEYS, combined_sims
@@ -42,6 +47,17 @@ from demovlp_tpu_torch.train.base_trainer import BaseTrainer
 from demovlp_tpu_torch.train.steps import (batch_to_device, make_retrieval_eval_step,
                                            make_retrieval_train_step, pad_batch,
                                            parse_text_buckets, prepare_batch)
+
+def check_eval_keys(config: Dict[str, Any]) -> None:
+    """`eval.xattn_backend` one of JAX `set_backend`'s values (default
+    "auto") and `eval.local_sim_segment` a positive integer (default 64),
+    as JAX retrieval.py:91-95 reads them; else ValueError naming the key."""
+    ev = config.get("eval", {}) or {}
+    check_backend("eval.xattn_backend", ev.get("xattn_backend", "auto"))
+    segment = ev.get("local_sim_segment", 64)
+    if isinstance(segment, bool) or not isinstance(segment, int) or segment < 1:
+        raise ValueError(f"eval.local_sim_segment={segment!r}: expected a positive integer")
+
 
 def verbose(epoch, metrics, mode, name="TEST"):
     msg = (f"[{mode}]{name:s} epoch {epoch}, R@1: {metrics['R1']:.1f}, "
@@ -78,6 +94,7 @@ class RetrievalTrainer(BaseTrainer):
         self.step_losses: List[float] = []
         self.step_text_lens: List[int] = []
         self.text_buckets = parse_text_buckets(config["trainer"])
+        check_eval_keys(config)
         mlm = config.get("mlm", {}) or {}
         self.mlm_weight = float(mlm.get("weight", 0.0))
         self.mlm_prob = float(mlm.get("mask_prob", 0.15))
@@ -86,7 +103,7 @@ class RetrievalTrainer(BaseTrainer):
         self._mlm_rng = np.random.default_rng(self.rng_seed + 1)
         self._train_step = make_retrieval_train_step(model, loss, optimizer,
                                                      mlm_weight=self.mlm_weight,
-                                                     mesh=self.mesh)
+                                                     mesh=self.mesh, dropout_seed=self.rng_seed)
         self._eval_step = make_retrieval_eval_step(model, loss, mesh=self.mesh)
 
     def _train_epoch(self, epoch: int) -> Dict[str, Any]:

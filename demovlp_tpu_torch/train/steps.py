@@ -21,9 +21,22 @@ the one global loss, so the sum is the one-process gradient, and
 `max_grad_norm` clips the summed gradient. The MLM loss is normalised by
 the global count of masked tokens and the QA cross-entropy is a mean over
 the global batch. Without a mesh nothing is gathered or reduced.
+
+Dropout (JAX steps.py:199,268 fold the step into the dropout key): a train
+step that is not `deterministic` runs its forward with torch's default
+generators (the CPU's and the step's device's) seeded by (`dropout_seed`,
+the optimizer's update count before the step, the data rank), so the
+model's nn.Dropout layers draw keyed masks, and restores their states
+after. The count is restored with the optimizer state, so a run
+resumed from a checkpoint draws the masks the uninterrupted run drew, and
+data ranks draw different masks; the ranks of one model group share a data
+rank and so their masks. A remat recompute (torch.utils.checkpoint) restores
+the forward's generator state and so redraws the same masks. The stream is
+not JAX's (the PRNGs differ).
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -32,8 +45,9 @@ import torch
 from demovlp_tpu_torch.device import to_device
 from demovlp_tpu_torch.ops.masking import additive_mask
 from demovlp_tpu_torch.ops.similarity import sim_matrix
-from demovlp_tpu_torch.parallel.mesh import (all_reduce_max_int, all_reduce_sum, data_group,
-                                             gather_rows, process_count, reduce_gradients)
+from demovlp_tpu_torch.parallel.mesh import (all_reduce_max_int, all_reduce_sum, data_coords,
+                                             data_group, gather_rows, process_count,
+                                             reduce_gradients)
 
 
 def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100,
@@ -147,6 +161,42 @@ def _global_batch(out, batch, group, valid=None):
     return out, batch, (None if valid is None else gather_rows(valid, group))
 
 
+def dropout_key(seed: int, step: int, rank: int) -> int:
+    """The 64-bit seed of the dropout generator of optimizer step `step`
+    on data rank `rank`."""
+    state = np.random.SeedSequence([int(seed), int(step), int(rank)]).generate_state(
+        1, dtype=np.uint64)
+    return int(state[0])
+
+
+def dropout_scope(seed: int, rank: int, step_count: Callable[[], int], deterministic: bool):
+    """A context manager factory for the train steps: `with make(device):`
+    seeds torch's default CPU generator and `device`'s default generator
+    with dropout_key(seed, step_count(), rank) and restores both states on
+    exit; a no-op when `deterministic`."""
+
+    @contextmanager
+    def make(device: torch.device):
+        if deterministic:
+            yield
+            return
+        gens = [torch.default_generator]
+        if device.type == "cuda":
+            index = torch.cuda.current_device() if device.index is None else device.index
+            gens.append(torch.cuda.default_generators[index])
+        saved = [g.get_state() for g in gens]
+        key = dropout_key(seed, step_count(), rank)
+        for g in gens:
+            g.manual_seed(key)
+        try:
+            yield
+        finally:
+            for g, state in zip(gens, saved):
+                g.set_state(state)
+
+    return make
+
+
 def mlm_loss_fn(logits, labels, ignore_index: int = -100, group=None):
     """Masked-LM cross-entropy (f32) averaged over the positions whose label
     is not `ignore_index`; 0 where there are none. With a data group the
@@ -161,21 +211,26 @@ def mlm_loss_fn(logits, labels, ignore_index: int = -100, group=None):
 
 def make_retrieval_train_step(model: torch.nn.Module, loss_obj, optimizer,
                               deterministic: bool = False,
-                              mlm_weight: float = 0.0, mesh=None) -> Callable:
+                              mlm_weight: float = 0.0, mesh=None,
+                              dropout_seed: int = 0) -> Callable:
     """step(batch, lr) -> metrics (device scalars): forward (dropout on
-    unless `deterministic`), losses, backward, one AdamW update at `lr`.
+    unless `deterministic`, keyed by `dropout_seed` as the module docstring
+    says), losses, backward, one AdamW update at `lr`.
     With `mlm_weight` the model's MLM head runs on the masked text and
     mlm_weight * mlm_loss_fn(logits, batch["mlm_labels"]) joins the total;
     `mlm_loss` is 0 otherwise. The gradients stay in `p.grad` until the
     next step. With a data-parallel `mesh` the step is the global-batch
     step of the module docstring; the metrics are the global ones."""
     group = data_group(mesh)
+    dropout = dropout_scope(dropout_seed, data_coords(mesh)[0],
+                            lambda: optimizer.step_count, deterministic)
 
     def step(batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
         model.train(not deterministic)
         optimizer.set_lr(lr)
         optimizer.zero_grad(set_to_none=True)
-        out = model(batch, mlm=True) if mlm_weight else model(batch)
+        with dropout(batch["input_ids"].device):
+            out = model(batch, mlm=True) if mlm_weight else model(batch)
         if group is None:
             total, g, l = retrieval_losses(loss_obj, out, batch)
         else:
@@ -224,20 +279,25 @@ def make_retrieval_eval_step(model: torch.nn.Module, loss_obj, mesh=None) -> Cal
 
 
 def make_qa_train_step(model: torch.nn.Module, loss_obj, optimizer,
-                       deterministic: bool = False, mesh=None) -> Callable:
+                       deterministic: bool = False, mesh=None,
+                       dropout_seed: int = 0) -> Callable:
     """step(batch, lr) -> {"loss", "correct"} (device scalars): forward
-    (dropout on unless `deterministic`), cross-entropy on the logits,
+    (dropout on unless `deterministic`, keyed by `dropout_seed` as the
+    module docstring says), cross-entropy on the logits,
     backward, one AdamW update; `correct` counts argmax hits. With a
     data-parallel `mesh` the loss is the mean over the global batch (the
     data ranks' batches are equal) and both metrics are global."""
     group = data_group(mesh)
     ranks = 1 if group is None else torch.distributed.get_world_size(group)
+    dropout = dropout_scope(dropout_seed, data_coords(mesh)[0],
+                            lambda: optimizer.step_count, deterministic)
 
     def step(batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
         model.train(not deterministic)
         optimizer.set_lr(lr)
         optimizer.zero_grad(set_to_none=True)
-        logits = model(batch)["logits"]
+        with dropout(batch["input_ids"].device):
+            logits = model(batch)["logits"]
         loss = loss_obj(logits, batch["label"])
         if group is not None:
             loss = loss / ranks  # this rank's share of the global mean

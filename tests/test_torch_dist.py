@@ -25,6 +25,9 @@ f32, dropout off, held against one process on the concatenated batch.
   buckets trim to the larger one.
 * Checkpoints: rank 0 writes, both ranks restore, and a step from the
   restored state equals a step from the live one on every rank.
+* Dropout (on, fed the same rows on both ranks): two data ranks draw
+  different masks, and the two ranks of one model group (mesh (1, 2), one
+  data rank) the same masks, as their replicated activations need.
 """
 from __future__ import annotations
 
@@ -168,3 +171,12 @@ def test_checkpoint_save_and_resume_on_both_ranks(tmp_path):
         assert r["resumed"] == r["live"]
         for k, v in r["live_params"].items():
             assert torch.equal(r["resumed_params"][k], v), k
+
+
+@pytest.mark.parametrize("model_axis,same", [(1, False), (2, True)],
+                         ids=["data-ranks-differ", "model-ranks-agree"])
+def test_dropout_masks_by_data_rank(tmp_path, model_axis, same):
+    W.spawn(W.dropout_case, 2, str(tmp_path), model_axis)
+    a, b = _ranks(str(tmp_path))
+    assert a.shape == b.shape and 0.3 < float(a.float().mean()) < 0.7  # p = 0.5 drew
+    assert torch.equal(a, b) == same

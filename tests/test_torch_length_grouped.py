@@ -5,7 +5,9 @@ caption-length proxy, on the CPU, against the JAX package.
   gives the JAX `RegionDataLoader`'s batches index for index (process 0 of
   1, the same seed), for two epochs, with the default (32, 48, 64) edges
   and with narrower ones passed as the trainer's `text_buckets`, so several
-  classes meet. The JAX loader's measurement-only "sort" mode raises.
+  classes meet; and in "sort" mode (the exact-length stable sort) for one
+  process and for each of two simulated processes. A mode that is neither a
+  bool nor "sort" raises.
 * Coverage: grouping reorders an epoch and drops nothing that ungrouped
   batching keeps: the same batch count and sizes, and every sample once
   where the batch size divides the dataset.
@@ -79,10 +81,37 @@ def test_batches_match_jax_index_for_index(buckets):
 
 
 def test_sort_mode_is_refused():
+    """"sort" was refused before it was ported; its batches are now held to
+    JAX's in test_sort_batches_match_jax. The name is kept for the refusal
+    that stays: a mode that is neither a bool nor "sort" raises."""
     tds, _ = _datasets(32)
-    with pytest.raises(NotImplementedError, match="sort"):
+    with pytest.raises(NotImplementedError, match="bucket"):
         RegionDataLoader(tds, batch_size=16, shuffle=True, drop_last=True,
-                         length_grouped="sort")
+                         length_grouped="bucket")
+
+
+@pytest.mark.parametrize("count", [1, 2], ids=["one-process", "two-processes"])
+def test_sort_batches_match_jax(count):
+    """length_grouped "sort": each process's batches equal the JAX
+    loader's index for index, two epochs; within the global order before
+    the batch shuffle the lengths never fall."""
+    tds, jds = _datasets(200)
+    kw = dict(batch_size=8, shuffle=True, drop_last=True, seed=5, num_workers=2,
+              length_grouped="sort")
+    lens = np.asarray(tds.text_lengths())
+    for index in range(count):
+        tdl = RegionDataLoader(tds, process_index=index, process_count=count, **kw)
+        jdl = JaxLoader(jds, process_index=index, process_count=count, **kw)
+        assert tdl.length_group_mode == jdl.length_group_mode == "sort"
+        for epoch in (1, 2):
+            tdl.set_epoch(epoch)
+            jdl.set_epoch(epoch)
+            got = [b.tolist() for b in tdl.batch_indices()]
+            assert got == [_indices(b) for b in jdl]
+            # batches are runs of the sorted order: a batch's lengths never fall
+            assert all(np.all(np.diff(lens[b]) >= 0) for b in got)
+        order, _ = tdl.host_indices()
+        assert np.all(np.diff(lens[order]) >= 0) and len(order) == 200 // count
 
 
 @pytest.mark.parametrize("n", [192, 200], ids=["divisible", "ragged"])

@@ -119,6 +119,22 @@ def test_local_dtype_bf16_runs_the_kernels_bf16_mode():
 
 
 def test_xla_path_options_are_refused():
-    for kw in (dict(local_block_segment=4), dict(local_remat=True)):
-        with pytest.raises(NotImplementedError):
+    """The options JAX runs on its XLA path were refused whole before they
+    were ported (test_xla_path_options_reach_the_local_loss); a value they
+    cannot take is still refused, by the key's name."""
+    for kw, key in ((dict(local_block_segment=-4), "local_block_segment"),
+                    (dict(local_block_segment=2.5), "local_block_segment"),
+                    (dict(local_block_segment=True), "local_block_segment"),
+                    (dict(local_remat="yes"), "local_remat")):
+        with pytest.raises(ValueError, match=key):
             tl.GlobalLocalLoss(**kw)
+
+
+def test_xla_path_options_reach_the_local_loss():
+    """The options reach the local loss (their numerics:
+    tests/test_torch_blockwise_loss.py); a local dtype the port has no mode
+    for is still refused."""
+    loss = tl.GlobalLocalLoss(local_block_segment=4, local_remat=True)
+    assert (loss.local_loss.block_segment, loss.local_remat) == (4, True)
+    with pytest.raises(ValueError):
+        tl.GlobalLocalLoss(local_dtype="float16")

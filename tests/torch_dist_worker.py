@@ -294,3 +294,27 @@ def tp_case(rank: int, out: str, init: dict) -> None:
                 "params": full_state_dict(model), "placements": placements},
                os.path.join(out, f"rank{rank}.pt"))
 
+
+
+def dropout_case(rank: int, out: str, model_axis: int) -> None:
+    """One train step with dropout on (p = 0.5 in the text tower) at mesh
+    (2 / model_axis, model_axis), every rank feeding the same rows: each
+    rank reports where its embedding dropout zeroed the input."""
+    from demovlp_tpu_torch.cli.common import build_optimizer
+    from demovlp_tpu_torch.parallel.mesh import create_mesh
+    from demovlp_tpu_torch.parallel.tp import apply_tp
+    from demovlp_tpu_torch.train.steps import make_retrieval_train_step
+    mesh = create_mesh(model_axis, "cpu")
+    model = ObjectRelation(object_num=K, num_frames=F, projection_dim=16, object_embed_dim=32,
+                           object_depth=1, object_heads=4,
+                           text_config=DistilBertConfig(**{**TEXT, "dropout": 0.5}))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = apply_tp(model, mesh)
+    zeros = []
+    model.text_model.embeddings.dropout.register_forward_hook(
+        lambda mod, args, y: zeros.append((y == 0).clone()))
+    opt = build_optimizer({"optimizer": {"type": "AdamW", "args": {"lr": 1e-3}}},
+                          model.parameters())
+    step = make_retrieval_train_step(model, loss_obj(), opt, mesh=mesh, dropout_seed=3)
+    step(to_torch(rows(make_batch(1), 0, B // 2)), 1e-3)
+    torch.save(zeros[0], os.path.join(out, f"rank{rank}.pt"))
