@@ -64,12 +64,13 @@ Phases, each fatal on failure (exit code != 0, and no result line):
   8b. profile — (run after the timings, 14) utils/profiling.trace over 6
                 unfenced steps of that trainer,
                 twice: with its loader drawing batches during the window,
-                then with the batches drawn before it; the loop's
-                pieces in annotate spans
-                (data, prepare, to_device, step, consume): each span's mean
+                then with the batches drawn before it; the program's own
+                spans (data.wait, train.prepare, train.upload, train.step
+                with its forward, loss, backward and optimizer,
+                train.read_metrics): each span's mean
                 host ms, the 10 host ops with the most self CPU time, the 10
                 device kernels with the most time, the device's busy share
-                over the window and its 5 longest idle gaps with the span
+                over the window and its 5 longest idle gaps with the spans
                 the host was in; the traces, gzipped, under
                 chiprun_out/chip_smoke/profile{,-loader-idle}/;
   8c. pretrain-fast — the train CLI at full width on
@@ -396,9 +397,10 @@ RD_LOADER_BATCHES = 16
 # [record]: the run record's steps, and the runs with and without the writer
 RECORD_STEPS = 16
 # [profile]: unfenced steps of the pre-training trainer inside the trace,
-# and the host spans its loop opens around each step's pieces
+# and the program's spans that the loop's pieces record (utils/profiling.py)
 PROFILE_STEPS = 6
-PROFILE_SPANS = ("data", "prepare", "to_device", "step", "consume")
+PROFILE_SPANS = ("data.wait", "train.prepare", "train.upload", "train.step", "train.forward",
+                 "train.loss", "train.backward", "train.optimizer", "train.read_metrics")
 # the device's own events in the trace (kernels, copies, fills)
 TRACE_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # [extractor]: PatchRegionExtractor at its default widths (384 x 6 layers x
@@ -2338,12 +2340,12 @@ def phase_record(tmp: Path, trainer) -> None:
         fail(f"the writer changed the loop's synchronising calls: {sync_w} with, {sync_n} without")
 
 
-def _profile_window(trainer, device, prof_dir: Path, batches, label: str) -> None:
+def _profile_window(trainer, device, prof_dir: Path, batches, label: str, waits: int) -> None:
     """One traced window: a step before it (so it opens on a running loop),
-    then PROFILE_STEPS unfenced steps whose host pieces sit in annotate
-    spans, the batches drawn from `batches` inside the `data` span; the
-    trace's split by span, its top host ops and device kernels, the
-    device's busy share and its longest idle gaps."""
+    then PROFILE_STEPS unfenced steps, the batches drawn from `batches`
+    (the loader's `data.wait` span `waits` times); the trace's split by the
+    program's spans, its top host ops and device kernels, the device's
+    busy share and its longest idle gaps."""
     import gzip
     import shutil
 
@@ -2359,18 +2361,10 @@ def _profile_window(trainer, device, prof_dir: Path, batches, label: str) -> Non
     deferred.push(trainer._train_step(batch, lr))
     with profiling.trace(prof_dir, device) as prof:
         for _ in range(PROFILE_STEPS):
-            with profiling.annotate("data"):
-                data = next(batches)
-            with profiling.annotate("prepare"):
-                arrays = trainer.train_arrays(data)
-            with profiling.annotate("to_device"):
-                batch = batch_to_device(arrays, trainer.device, trainer.transfer_dtype)
-            with profiling.annotate("step"):
-                m = trainer._train_step(batch, lr)
-            with profiling.annotate("consume"):
-                deferred.push(m)
-        with profiling.annotate("consume"):
-            deferred.flush()
+            batch = batch_to_device(trainer.train_arrays(next(batches)), trainer.device,
+                                    trainer.transfer_dtype)
+            deferred.push(trainer._train_step(batch, lr))
+        deferred.flush()
         torch.cuda.synchronize()
     path = prof_dir / profiling.TRACE_FILE
     events = json.loads(path.read_text())["traceEvents"]
@@ -2383,8 +2377,11 @@ def _profile_window(trainer, device, prof_dir: Path, batches, label: str) -> Non
     spans = [e for e in events if e.get("cat") == "user_annotation" and e["name"] in PROFILE_SPANS]
     dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                  if e.get("cat") in TRACE_DEVICE_CATS)
-    if len(spans) != len(PROFILE_SPANS) * PROFILE_STEPS + 1 or not dev:
-        fail(f"{tag} the trace holds {len(spans)} spans and {len(dev)} device events")
+    want = {name: PROFILE_STEPS for name in PROFILE_SPANS}
+    want.update({"data.wait": waits, "train.read_metrics": PROFILE_STEPS + 1})
+    got = {name: sum(e["name"] == name for e in spans) for name in PROFILE_SPANS}
+    if got != want or not dev:
+        fail(f"{tag} the trace holds the spans {got}, not {want}, and {len(dev)} device events")
     t0 = min(e["ts"] for e in spans)
     t1 = max(e["ts"] + e["dur"] for e in spans)
     window = t1 - t0
@@ -2393,7 +2390,9 @@ def _profile_window(trainer, device, prof_dir: Path, batches, label: str) -> Non
         f"{os.path.relpath(str(path) + '.gz', ROOT)}")
     for name in PROFILE_SPANS:
         durs = [e["dur"] / 1e3 for e in spans if e["name"] == name]
-        log(f"{tag} span {name:9s}: mean {np.mean(durs):9.3f} ms host, "
+        if not durs:
+            continue
+        log(f"{tag} span {name:18s}: mean {np.mean(durs):9.3f} ms host, "
             f"{len(durs)} spans, {sum(durs) / (window / 1e3):.3f} of the window")
     host = []
     for e in prof.key_averages():
@@ -2440,8 +2439,7 @@ def _profile_window(trainer, device, prof_dir: Path, batches, label: str) -> Non
 
 def phase_profile(trainer, device, out_dir: Path) -> None:
     """profiling.trace over PROFILE_STEPS unfenced steps of the pre-training
-    trainer, the loop's host pieces in annotate spans (the JAX
-    trainer has no spans of its own), twice: with the loader drawing the
+    trainer, read by the program's own spans, twice: with the loader drawing the
     next batches on its thread during the window (as training runs), and
     with the window's batches drawn before it (the loader's thread done),
     which shows what the host's own pieces cost without it; then the
@@ -2453,13 +2451,15 @@ def phase_profile(trainer, device, out_dir: Path) -> None:
     torch.cuda.reset_peak_memory_stats(device)
     dl.set_epoch(3)
     batches = iter(dl)
-    _profile_window(trainer, device, out_dir / "profile", batches, "loader drawing")
+    _profile_window(trainer, device, out_dir / "profile", batches, "loader drawing",
+                    PROFILE_STEPS)
     batches.close()
     dl.set_epoch(4)
     batches = iter(dl)
     drawn = [next(batches) for _ in range(PROFILE_STEPS + 1)]
     batches.close()
-    _profile_window(trainer, device, out_dir / "profile-loader-idle", iter(drawn), "loader idle")
+    _profile_window(trainer, device, out_dir / "profile-loader-idle", iter(drawn),
+                    "loader idle", 0)
     trainer.step_text_lens = lens
     stats = profiling.device_memory_stats()[f"cuda:{torch.device(device).index or 0}"]
     log(f"[profile] the card's memory over the two windows: peak allocated "

@@ -8,10 +8,12 @@ partial batch; eval loaders keep the dataset order and the partial batch.
 Sample i of epoch e is drawn with `SeedSequence([seed, e, i])`, so the
 batches equal the JAX loader's batch for batch. A background thread
 assembles the next batches with a thread pool while the caller consumes
-the current one. Where the dataset decodes its regions with the base
-class's reader and the native reader is on (data/native.py), one native
-call decodes a whole batch into its final buffers (`_fetch_batch_native`);
-otherwise each sample is fetched on its own and the samples are stacked.
+the current one (spans: `data.batch` on that thread for each batch,
+`data.wait` around the caller's wait for one). Where the dataset decodes
+its regions with the base class's reader and the native reader is on
+(data/native.py), one native call decodes a whole batch into its final
+buffers (`_fetch_batch_native`); otherwise each sample is fetched on its
+own and the samples are stacked.
 
 Length grouping (`length_grouped`, train loaders only: shuffled and
 dropping the last batch; inert elsewhere) gives the JAX loader's batches
@@ -46,6 +48,7 @@ from demovlp_tpu_torch.data.regions import REGION_DIM
 from demovlp_tpu_torch.data.transforms import init_transform_dict
 from demovlp_tpu_torch.parallel.mesh import process_count as _process_count
 from demovlp_tpu_torch.parallel.mesh import process_index as _process_index
+from demovlp_tpu_torch.utils import profiling
 
 _PREFETCH = 2  # batches assembled ahead of the consumer
 # [CLS] + [SEP]: the margin between the word-count length proxy and the
@@ -239,12 +242,13 @@ class RegionDataLoader:
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
                     for idx, flags in batches:
-                        if reader is not None:
-                            batch = self._fetch_batch_native(idx, reader, pool)
-                        else:
-                            batch = collate(list(pool.map(self._fetch, idx)))
-                        if flags is not None:
-                            batch["sample_valid"] = flags.astype(np.float32)
+                        with profiling.span("data.batch"):
+                            if reader is not None:
+                                batch = self._fetch_batch_native(idx, reader, pool)
+                            else:
+                                batch = collate(list(pool.map(self._fetch, idx)))
+                            if flags is not None:
+                                batch["sample_valid"] = flags.astype(np.float32)
                         if not put(batch):
                             return
             except BaseException as exc:  # hand the failure to the consumer
@@ -256,7 +260,8 @@ class RegionDataLoader:
         thread.start()
         try:
             while True:
-                item = out_q.get()
+                with profiling.span("data.wait"):
+                    item = out_q.get()
                 if item is sentinel:
                     return
                 if isinstance(item, BaseException):

@@ -24,6 +24,11 @@ holds; `embed_texts` gives each data rank a contiguous ceil(N / P) share
 of the queries and gathers the same way; the local sims split their
 gallery rows (parallel/sharded_eval.py). Every rank returns the whole
 result.
+
+Spans: `serve.query` around `query_retrieval`, and inside it
+`serve.embed_texts`, `serve.global_sims` (the global part of
+`query_sims`), the local sims' spans (parallel/sharded_eval.py) and
+`serve.topk`.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from demovlp_tpu_torch.parallel.mesh import (data_allgather, data_coords,
                                              host_allgather_pylist, host_allgather_ragged)
 from demovlp_tpu_torch.parallel.sharded_eval import sharded_local_sims
 from demovlp_tpu_torch.train.steps import batch_to_device, pad_batch, prepare_batch
+from demovlp_tpu_torch.utils import profiling
 
 #: keys of the gathered embedding dict, in trainer order
 EMBED_KEYS = ("g_t", "g_o", "l_t", "l_o", "o_mask", "t_mask", "t_len")
@@ -166,38 +172,39 @@ def embed_texts(text_step: Callable, queries, tokenizer, device, *, batch_size: 
     Every process passes the same queries; with a data-parallel `mesh`
     each data rank embeds its contiguous share (every rank runs the same
     number of batches)."""
-    if not queries:
-        raise ValueError("embed_texts: empty query list")
-    device = torch.device(device)
-    queries = [str(q) for q in queries]
-    rank, ranks = data_coords(mesh)
-    per = -(-len(queries) // ranks)
-    local = queries[rank * per:(rank + 1) * per]
-    bs = max(1, min(batch_size, per))
-    outs: Dict[str, List[np.ndarray]] = {k: [] for k in ("g_t", "l_t", "t_mask")}
+    with profiling.span("serve.embed_texts"):
+        if not queries:
+            raise ValueError("embed_texts: empty query list")
+        device = torch.device(device)
+        queries = [str(q) for q in queries]
+        rank, ranks = data_coords(mesh)
+        per = -(-len(queries) // ranks)
+        local = queries[rank * per:(rank + 1) * per]
+        bs = max(1, min(batch_size, per))
+        outs: Dict[str, List[np.ndarray]] = {k: [] for k in ("g_t", "l_t", "t_mask")}
 
-    def drain(host, done, keep) -> None:
-        if done is not None:
-            done.synchronize()
-        for k in outs:
-            outs[k].append(_host_rows(host[k], keep))
+        def drain(host, done, keep) -> None:
+            if done is not None:
+                done.synchronize()
+            for k in outs:
+                outs[k].append(_host_rows(host[k], keep))
 
-    pending = None
-    for s in range(0, per, bs):
-        chunk = local[s:s + bs]
-        keep = np.arange(bs) < len(chunk)
-        enc = tokenizer(chunk + [""] * (bs - len(chunk)), max_length=max_text_len)
-        out = text_step(to_device(enc["input_ids"].astype(np.int64), device),
-                        to_device(enc["attention_mask"].astype(np.int64), device))
-        host = _to_host(out, device)
-        if pending is not None:
-            drain(*pending)
-        pending = (*host, keep)
-    drain(*pending)
-    cat = {k: np.concatenate(v, axis=0) for k, v in outs.items()}
-    if ranks > 1:
-        cat = {k: host_allgather_ragged(v, data_allgather(mesh)) for k, v in cat.items()}
-    return cat
+        pending = None
+        for s in range(0, per, bs):
+            chunk = local[s:s + bs]
+            keep = np.arange(bs) < len(chunk)
+            enc = tokenizer(chunk + [""] * (bs - len(chunk)), max_length=max_text_len)
+            out = text_step(to_device(enc["input_ids"].astype(np.int64), device),
+                            to_device(enc["attention_mask"].astype(np.int64), device))
+            host = _to_host(out, device)
+            if pending is not None:
+                drain(*pending)
+            pending = (*host, keep)
+        drain(*pending)
+        cat = {k: np.concatenate(v, axis=0) for k, v in outs.items()}
+        if ranks > 1:
+            cat = {k: host_allgather_ragged(v, data_allgather(mesh)) for k, v in cat.items()}
+        return cat
 
 
 def load_index(path) -> Tuple[Dict[str, np.ndarray], Dict[str, List[str]]]:
@@ -214,9 +221,10 @@ def query_sims(q: Dict[str, np.ndarray], gallery: Dict[str, np.ndarray], device,
     """(query, gallery) sims: global cosine in f32, plus (if use_local) the
     local sims computed (gallery video, query text) and transposed."""
     device = torch.device(device)
-    g_t = torch.from_numpy(np.asarray(q["g_t"], np.float32)).to(device)
-    g_o = torch.from_numpy(np.asarray(gallery["g_o"], np.float32)).to(device)
-    sims = sim_matrix(g_t, g_o).cpu().numpy()
+    with profiling.span("serve.global_sims"):
+        g_t = torch.from_numpy(np.asarray(q["g_t"], np.float32)).to(device)
+        g_o = torch.from_numpy(np.asarray(gallery["g_o"], np.float32)).to(device)
+        sims = sim_matrix(g_t, g_o).cpu().numpy()
     if use_local:
         local = sharded_local_sims(gallery["l_o"], q["l_t"], gallery["o_mask"], q["t_mask"],
                                    device=device, lambda_softmax=lambda_softmax,
@@ -236,20 +244,21 @@ def query_retrieval(text_step: Callable, queries, tokenizer, gallery: Dict[str, 
     read). Under mscoco_dedup the gallery keeps every 5th row and the
     returned indices are npz rows (x 5). Returns (results, the (query,
     gallery) sims scored)."""
-    q = embed_texts(text_step, queries, tokenizer, device, batch_size=batch_size, mesh=mesh)
-    gal = gallery
-    if mscoco_dedup:
-        gal = {key: v[::5] for key, v in gallery.items()}
-        if gallery_meta is not None:
-            gallery_meta = {key: v[::5] for key, v in gallery_meta.items()}
-    sims = query_sims(q, gal, device, use_local=use_local, lambda_softmax=lambda_softmax,
-                      focal_type=focal_type, mesh=mesh)
-    results = topk_retrieval(sims, k=k, query_meta={"raw_captions": [str(s) for s in queries]},
-                             gallery_meta=gallery_meta)
-    if mscoco_dedup:
-        for r in results:
-            r["topk_indices"] = [5 * i for i in r["topk_indices"]]
-    return results, sims
+    with profiling.span("serve.query"):
+        q = embed_texts(text_step, queries, tokenizer, device, batch_size=batch_size, mesh=mesh)
+        gal = gallery
+        if mscoco_dedup:
+            gal = {key: v[::5] for key, v in gallery.items()}
+            if gallery_meta is not None:
+                gallery_meta = {key: v[::5] for key, v in gallery_meta.items()}
+        sims = query_sims(q, gal, device, use_local=use_local, lambda_softmax=lambda_softmax,
+                          focal_type=focal_type, mesh=mesh)
+        results = topk_retrieval(sims, k=k, query_meta={"raw_captions": [str(s) for s in queries]},
+                                 gallery_meta=gallery_meta)
+        if mscoco_dedup:
+            for r in results:
+                r["topk_indices"] = [5 * i for i in r["topk_indices"]]
+        return results, sims
 
 
 def combined_sims(cat: Dict[str, np.ndarray], device, *, use_local: bool = True,
@@ -331,18 +340,19 @@ def topk_retrieval(sims: np.ndarray, k: int = 10,
                    ) -> List[Dict[str, Any]]:
     """Per-query top-k gallery indices and scores from a (query, gallery)
     similarity matrix, with optional metadata attached."""
-    k = min(k, sims.shape[1])
-    order = np.argsort(-sims, axis=1)[:, :k]
-    results = []
-    for q, idxs in enumerate(order):
-        entry: Dict[str, Any] = {
-            "query_index": q,
-            "topk_indices": idxs.tolist(),
-            "topk_scores": sims[q, idxs].astype(float).tolist(),
-        }
-        if query_meta is not None:
-            entry["query_caption"] = query_meta["raw_captions"][q]
-        if gallery_meta is not None:
-            entry["topk_paths"] = [gallery_meta["paths"][i] for i in idxs]
-        results.append(entry)
-    return results
+    with profiling.span("serve.topk"):
+        k = min(k, sims.shape[1])
+        order = np.argsort(-sims, axis=1)[:, :k]
+        results = []
+        for q, idxs in enumerate(order):
+            entry: Dict[str, Any] = {
+                "query_index": q,
+                "topk_indices": idxs.tolist(),
+                "topk_scores": sims[q, idxs].astype(float).tolist(),
+            }
+            if query_meta is not None:
+                entry["query_caption"] = query_meta["raw_captions"][q]
+            if gallery_meta is not None:
+                entry["topk_paths"] = [gallery_meta["paths"][i] for i in idxs]
+            results.append(entry)
+        return results

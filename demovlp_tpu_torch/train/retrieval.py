@@ -47,6 +47,7 @@ from demovlp_tpu_torch.train.base_trainer import BaseTrainer
 from demovlp_tpu_torch.train.steps import (batch_to_device, make_retrieval_eval_step,
                                            make_retrieval_train_step, pad_batch,
                                            parse_text_buckets, prepare_batch)
+from demovlp_tpu_torch.utils import profiling
 
 def check_eval_keys(config: Dict[str, Any]) -> None:
     """`eval.xattn_backend` one of JAX `set_backend`'s values (default
@@ -155,15 +156,16 @@ class RetrievalTrainer(BaseTrainer):
     def train_arrays(self, data) -> Dict[str, np.ndarray]:
         """A train batch's arrays: tokenized, trimmed to its bucket and,
         with the MLM objective, masked (drawing from the trainer's MLM
-        generator)."""
-        arrays = prepare_batch(data, self.tokenizer, text_buckets=self.text_buckets)
-        arrays.pop("label", None)
-        self.step_text_lens.append(int(arrays["input_ids"].shape[1]))
-        if self.mlm_weight:
-            arrays["input_ids"], arrays["mlm_labels"] = mask_batch_text_tokens(
-                arrays["input_ids"], arrays["attention_mask"],
-                mask_token_id=self.mlm_mask_token, vocab_size=self.mlm_vocab,
-                rng=self._mlm_rng, mlm_probability=self.mlm_prob)
+        generator). Span `train.prepare`."""
+        with profiling.span("train.prepare"):
+            arrays = prepare_batch(data, self.tokenizer, text_buckets=self.text_buckets)
+            arrays.pop("label", None)
+            self.step_text_lens.append(int(arrays["input_ids"].shape[1]))
+            if self.mlm_weight:
+                arrays["input_ids"], arrays["mlm_labels"] = mask_batch_text_tokens(
+                    arrays["input_ids"], arrays["attention_mask"],
+                    mask_token_id=self.mlm_mask_token, vocab_size=self.mlm_vocab,
+                    rng=self._mlm_rng, mlm_probability=self.mlm_prob)
         return arrays
 
     def embed(self, dl, metas: Optional[List[Dict[str, Any]]] = None):

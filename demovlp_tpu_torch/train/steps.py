@@ -48,6 +48,7 @@ from demovlp_tpu_torch.ops.similarity import sim_matrix
 from demovlp_tpu_torch.parallel.mesh import (all_reduce_max_int, all_reduce_sum, data_coords,
                                              data_group, gather_rows, process_count,
                                              reduce_gradients)
+from demovlp_tpu_torch.utils import profiling
 
 
 def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100,
@@ -114,19 +115,24 @@ def batch_to_device(arrays: Dict[str, np.ndarray], device: torch.device,
                     transfer_dtype: torch.dtype | None = None) -> Dict[str, torch.Tensor]:
     """The model's batch on `device`. `transfer_dtype` (bf16 for a bf16
     model) casts the region tensor on the host before upload; the tower's
-    first op casts to its compute dtype anyway, so this is bit-identical."""
-    out = {
-        "input_ids": to_device(arrays["input_ids"].astype(np.int64), device),
-        "attention_mask": to_device(arrays["attention_mask"].astype(np.int64), device),
-        "object": to_device(arrays["object"], device, transfer_dtype),
-        "object_mask": to_device(arrays["object_mask"], device),
-    }
-    if "valid" in arrays:
-        out["valid"] = to_device(arrays["valid"], device)
-    if "label" in arrays:
-        out["label"] = to_device(arrays["label"].astype(np.int64), device)
-    if "mlm_labels" in arrays:
-        out["mlm_labels"] = to_device(arrays["mlm_labels"].astype(np.int64), device)
+    first op casts to its compute dtype anyway, so this is bit-identical.
+    Span `train.upload` (host cast, pin, copy enqueue), counter
+    `train.upload_bytes` (the bytes of the tensors returned)."""
+    with profiling.span("train.upload"):
+        out = {
+            "input_ids": to_device(arrays["input_ids"].astype(np.int64), device),
+            "attention_mask": to_device(arrays["attention_mask"].astype(np.int64), device),
+            "object": to_device(arrays["object"], device, transfer_dtype),
+            "object_mask": to_device(arrays["object_mask"], device),
+        }
+        if "valid" in arrays:
+            out["valid"] = to_device(arrays["valid"], device)
+        if "label" in arrays:
+            out["label"] = to_device(arrays["label"].astype(np.int64), device)
+        if "mlm_labels" in arrays:
+            out["mlm_labels"] = to_device(arrays["mlm_labels"].astype(np.int64), device)
+        if profiling.recording():
+            profiling.count("train.upload_bytes", sum(t.nbytes for t in out.values()))
     return out
 
 
@@ -220,29 +226,38 @@ def make_retrieval_train_step(model: torch.nn.Module, loss_obj, optimizer,
     mlm_weight * mlm_loss_fn(logits, batch["mlm_labels"]) joins the total;
     `mlm_loss` is 0 otherwise. The gradients stay in `p.grad` until the
     next step. With a data-parallel `mesh` the step is the global-batch
-    step of the module docstring; the metrics are the global ones."""
+    step of the module docstring; the metrics are the global ones.
+    Span `train.step`, with `train.forward`, `train.loss`, `train.backward`
+    (with the gradients' reduction) and `train.optimizer` inside it."""
     group = data_group(mesh)
     dropout = dropout_scope(dropout_seed, data_coords(mesh)[0],
                             lambda: optimizer.step_count, deterministic)
 
     def step(batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
+        with profiling.span("train.step"):
+            return _step(batch, lr)
+
+    def _step(batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
         model.train(not deterministic)
         optimizer.set_lr(lr)
         optimizer.zero_grad(set_to_none=True)
-        with dropout(batch["input_ids"].device):
+        with profiling.span("train.forward"), dropout(batch["input_ids"].device):
             out = model(batch, mlm=True) if mlm_weight else model(batch)
-        if group is None:
-            total, g, l = retrieval_losses(loss_obj, out, batch)
-        else:
-            total, g, l = retrieval_losses(loss_obj, *_global_batch(out, batch, group)[:2])
-        if mlm_weight:
-            mlm = mlm_loss_fn(out["mlm_logits"], batch["mlm_labels"], group=group)
-            total = total + mlm_weight * mlm
-        else:
-            mlm = torch.zeros((), dtype=torch.float32, device=total.device)
-        total.backward()
-        reduce_gradients(model.parameters(), group)
-        optimizer.step()
+        with profiling.span("train.loss"):
+            if group is None:
+                total, g, l = retrieval_losses(loss_obj, out, batch)
+            else:
+                total, g, l = retrieval_losses(loss_obj, *_global_batch(out, batch, group)[:2])
+            if mlm_weight:
+                mlm = mlm_loss_fn(out["mlm_logits"], batch["mlm_labels"], group=group)
+                total = total + mlm_weight * mlm
+            else:
+                mlm = torch.zeros((), dtype=torch.float32, device=total.device)
+        with profiling.span("train.backward"):
+            total.backward()
+            reduce_gradients(model.parameters(), group)
+        with profiling.span("train.optimizer"):
+            optimizer.step()
         if group is not None and mlm_weight:
             # this rank's total holds only its share of the MLM term
             mlm_all = all_reduce_sum(mlm, group)
