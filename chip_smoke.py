@@ -282,10 +282,11 @@ PEAK_TF32_FLOPS = 495e12
 TF32_PASSES = 3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# this kernel's times in the previous design (FFMA products), read on an
-# H100 80GB HBM3 at 700 W with this script: printed beside the new ones
-# (the bf16 forward's: one pre-training step's two launches at f = 1)
-PREV_MS = {"xattn_sim_fwd serve": 2777.7, "grouped_attention full": 2.099,
+# these kernels' times in their previous designs, read on an H100 80GB
+# HBM3 at 700 W with this script, printed beside the new ones: the f32
+# forward's serve with one block a pair (wgmma fed by cp.async), the bf16
+# forward's one pre-training step's two launches at f = 1
+PREV_MS = {"xattn_sim_fwd serve": 1800.4, "grouped_attention full": 2.099,
            "grouped_attention four shapes": 2.441, "xattn_sim_fwd_bf16 train": 11.535}
 # the bf16 forward at ragged shapes, (Bc, Bq, Ls, Lq, D): Lq past a 16-row
 # tile, Ls past 8, 16 and 32 columns and past the 256 softmax columns a warp
@@ -3707,7 +3708,7 @@ def main() -> None:
         "route": "cuda",
         "source": src + "xattn_sim_fwd.cu",
         # one count per direction runs three __global__ kernels
-        "launch": "l2norm_rows_kernel (context rows), l2norm_rows_kernel "
+        "launch": "l2norm_rows_tf32_kernel (context rows), l2norm_rows_tf32_kernel "
                   "(query rows), xattn_sim_fwd_tf32_kernel",
         "replaces": "demovlp_tpu/ops/pallas_xattn.py:91",
         "launches": serve_launches,
@@ -3721,7 +3722,7 @@ def main() -> None:
         "name": "xattn_sim_fwd_query",
         "route": "cuda",
         "source": src + "xattn_sim_fwd.cu",
-        "launch": "l2norm_rows_kernel (context rows), l2norm_rows_kernel "
+        "launch": "l2norm_rows_tf32_kernel (context rows), l2norm_rows_tf32_kernel "
                   "(query rows), xattn_sim_fwd_tf32_kernel",
         "replaces": "demovlp_tpu/ops/pallas_xattn.py:91",
         "launches": query["launches"],
@@ -3735,7 +3736,7 @@ def main() -> None:
         "name": "xattn_sim_fwd_extractor",
         "route": "cuda",
         "source": src + "xattn_sim_fwd.cu",
-        "launch": "l2norm_rows_kernel (context rows), l2norm_rows_kernel "
+        "launch": "l2norm_rows_tf32_kernel (context rows), l2norm_rows_tf32_kernel "
                   "(query rows), xattn_sim_fwd_tf32_kernel",
         "replaces": "demovlp_tpu/ops/pallas_xattn.py:91",
         "launches": extractor["launches"],
@@ -3764,7 +3765,8 @@ def main() -> None:
             if name not in rows:  # f = 1 trains the bf16 forward, f = 8 the f32 one
                 continue
             r = rows[name]
-            norm = "l2norm_rows_bf16_kernel" if name == xk.KERNEL_BF16 else "l2norm_rows_kernel"
+            norm = {xk.KERNEL: "l2norm_rows_tf32_kernel",
+                    xk.KERNEL_BF16: "l2norm_rows_bf16_kernel"}.get(name, "l2norm_rows_kernel")
             kernels.append({
                 "name": name + suffix,
                 "route": "cuda",

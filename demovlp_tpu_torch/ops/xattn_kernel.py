@@ -51,11 +51,12 @@ _BLOCK = 64  # items a side in one block pair of the plain versions
 
 #: launcher calls since the last reset (compare launches are counted too;
 #: callers reset it around the run they want to read). A forward count is
-#: one direction: l2norm_rows_kernel over the context rows and over the
-#: query rows, then xattn_sim_fwd_tf32_kernel (f32 mode); or in bf16 mode
+#: one direction: l2norm_rows_tf32_kernel over the context rows and over
+#: the query rows (normalised rows split into TF32 hi and lo parts), then
+#: xattn_sim_fwd_tf32_kernel (f32 mode); or in bf16 mode
 #: l2norm_rows_bf16_kernel twice, then xattn_sim_fwd_bf16_kernel on an
-#: (items, S) grid (S from the launcher). A backward count is the same two
-#: row-norm launches, then xattn_sim_bwd_dq_kernel and
+#: (items, S) grid (S from the launcher). A backward count is two
+#: l2norm_rows_kernel launches, then xattn_sim_bwd_dq_kernel and
 #: xattn_sim_bwd_dq_reduce_kernel, or xattn_sim_bwd_dc_kernel and
 #: xattn_sim_bwd_dc_reduce_kernel.
 LAUNCHES = {KERNEL: 0, KERNEL_BF16: 0, KERNEL_DQ: 0, KERNEL_DC: 0}
@@ -259,11 +260,13 @@ _ARGTYPES = {
     "xattn_sim_bwd_workspace": [ctypes.c_int] * 4,
     "xattn_sim_bwd_blocks_per_sm": [ctypes.c_int] * 5,
     "xattn_sim_fwd_bf16_splits": [ctypes.c_int] * 5,
+    "xattn_sim_fwd_tf32_scratch": [ctypes.c_int] * 5,
     "xattn_l2norm_rows_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                                        ctypes.c_void_p],
 }
 _ARGTYPES["xattn_sim_bwd_dc"] = _ARGTYPES["xattn_sim_bwd_dq"]
-_RESTYPES = {"xattn_sim_bwd_workspace": ctypes.c_longlong}
+_RESTYPES = {"xattn_sim_bwd_workspace": ctypes.c_longlong,
+             "xattn_sim_fwd_tf32_scratch": ctypes.c_longlong}
 
 
 def _function(source: str, name: str):
@@ -282,6 +285,20 @@ def _scratch(context, query):
             torch.empty((bq, lq), dtype=torch.float32, device=query.device))
 
 
+def _tf32_scratch(context, query):
+    """The f32 forward's scratch: the split rows its row pass writes (one
+    flat buffer, sized by the launcher for the shape) and the query norms.
+    About 4 floats a context value and 2 a query value: 1.0 GB for a
+    1000-video gallery at f = 8 against 64 queries."""
+    bc, ls, d = context.shape
+    bq, lq, _ = query.shape
+    n = int(_function(KERNEL, "xattn_sim_fwd_tf32_scratch")(bc, bq, ls, lq, d))
+    if n < 0:
+        raise RuntimeError(f"xattn_sim_fwd launch failed (Lq={lq}, Ls={ls}): cudaError_t {-n}")
+    return (torch.empty(n, dtype=torch.float32, device=context.device), None,
+            torch.empty((bq, lq), dtype=torch.float32, device=query.device))
+
+
 def _launch(context, query, ctx_mask, lam: float, focal_equal: bool, mxu_bf16: bool = False):
     _check(context, query, ctx_mask)
     bc, ls, d = context.shape
@@ -290,12 +307,12 @@ def _launch(context, query, ctx_mask, lam: float, focal_equal: bool, mxu_bf16: b
     if bc == 0 or bq == 0:
         return out
     fn = _function(KERNEL, "xattn_sim_fwd")
-    cn, qn, q_norm = _scratch(context, query)
+    cn, qn, q_norm = _scratch(context, query) if mxu_bf16 else _tf32_scratch(context, query)
     with torch.cuda.device(context.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(context.data_ptr(), query.data_ptr(), ctx_mask.data_ptr(), out.data_ptr(),
-                 cn.data_ptr(), qn.data_ptr(), q_norm.data_ptr(), bc, bq, ls, lq, d,
-                 float(lam), int(focal_equal), int(mxu_bf16), stream)
+                 cn.data_ptr(), None if qn is None else qn.data_ptr(), q_norm.data_ptr(),
+                 bc, bq, ls, lq, d, float(lam), int(focal_equal), int(mxu_bf16), stream)
     if err != 0:
         # the launcher sizes shared memory itself; cudaErrorInvalidValue (1)
         # there usually means the (Lq x Ls) score tile does not fit a block

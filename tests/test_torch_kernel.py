@@ -63,8 +63,9 @@ def test_kernel_matches_plain_on_card(shape, focal):
 
 @pytest.mark.gpu
 def test_launcher_rejects_a_score_tile_too_large_for_a_block():
-    """400 x 200 f32 scores (320 KB) exceed one block's shared memory: the
-    launcher's own sizing refuses it, the wrapper raises and counts nothing."""
+    """400 x 200 f32 scores (320 KB) exceed one block's shared memory (and
+    every score-tile layout of the f32 kernel): the launcher's own sizing
+    refuses it, the wrapper raises and counts nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from demovlp_tpu_torch.device import resolve_device
@@ -77,26 +78,41 @@ def test_launcher_rejects_a_score_tile_too_large_for_a_block():
     assert xk.LAUNCHES[xk.KERNEL] == before
 
 
+# (Bc, Bq, Ls, Lq, D): the ragged shapes at 6 x 5 pairs; pairs fewer than
+# the SMs and no multiple of the persistent grid (3 x 5, 7 x 19); the f = 8
+# fine-tune's 32 x 32; the query call's 1000 videos x 64 texts, both ways
+_TF32_CASES = (
+    [pytest.param(6, 5, ls, lq, d, id=f"{name}-{d}")
+     for name, (ls, lq) in (("i2t", (240, 99)), ("t2i", (99, 240)), ("ragged", (13, 40)),
+                            ("wide", (300, 40)))
+     for d in (20, 36, 256)]
+    + [pytest.param(bc, bq, ls, lq, 256, id=f"{bc}x{bq}-{name}")
+       for bc, bq in ((3, 5), (7, 19), (32, 32))
+       for name, (ls, lq) in (("i2t", (240, 99)), ("t2i", (99, 240)))]
+    + [pytest.param(1000, 64, 240, 99, 256, id="query-i2t"),
+       pytest.param(64, 1000, 99, 240, 256, id="query-t2i")])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("focal", [False, True], ids=["prob", "equal"])
-@pytest.mark.parametrize("d", [20, 36, 256])
-@pytest.mark.parametrize("ls,lq", [(240, 99), (99, 240), (13, 40), (300, 40)],
-                         ids=["i2t", "t2i", "ragged", "wide"])
-def test_tf32_forward_matches_plain_on_card(ls, lq, d, focal):
-    """The f32 forward (xattn_sim_fwd_tf32_kernel, 3xTF32 products) at
-    ragged shapes: Lq past a 64-row tile, Ls past an 8-column tile and (300)
-    past the 256 columns whose softmax rows a warp keeps in registers, D
-    past the 8-deep chunk and not a multiple of 8 (20, 36). 'prob' within 1e-5
-    of the largest sim (3xTF32 reads about 3e-7 of it on the CPU emulation,
-    tests/test_torch_tc_numerics.py); under 'equal' a near-tie may flip one
-    position of Lq and move a sim by up to 2e-3, in at most 1% of the
-    entries."""
+@pytest.mark.parametrize("bc,bq,ls,lq,d", _TF32_CASES)
+def test_tf32_forward_matches_plain_on_card(bc, bq, ls, lq, d, focal):
+    """The f32 forward (l2norm_rows_tf32_kernel, then
+    xattn_sim_fwd_tf32_kernel's 3xTF32 products) at ragged shapes: Lq past
+    a 64-row tile, Ls past an 8-column tile and (300) past the 256 columns
+    whose softmax rows a warp keeps in registers, D past the 8-deep stage
+    and not a multiple of 8 (20, 36); at pair counts below and above the
+    persistent grid, and at the fine-tune's and the query call's sizes.
+    'prob' within 1e-5 of the largest sim (3xTF32 reads about 3e-7 of it
+    on the CPU emulation, tests/test_torch_tc_numerics.py); under 'equal' a
+    near-tie may flip one position of Lq and move a sim by up to 2e-3, in
+    at most 1% of the entries."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from demovlp_tpu_torch.device import resolve_device
 
     dev = resolve_device("cuda")
-    ctx, qry, mask = _inputs(6, 5, ls, lq, d, seed=2, device=dev)
+    ctx, qry, mask = _inputs(bc, bq, ls, lq, d, seed=2, device=dev)
     before = xk.LAUNCHES[xk.KERNEL]
     got = xk.direction_sim(ctx, qry, mask, 20.0, focal)
     want = xk.direction_sim_plain(ctx, qry, mask, 20.0, focal)
@@ -110,6 +126,26 @@ def test_tf32_forward_matches_plain_on_card(ls, lq, d, focal):
     else:
         assert float(err.max()) <= tol, float(err.max())
     assert got[0].abs().max().item() == 0.0  # fully masked context: p = 0
+
+
+@pytest.mark.gpu
+def test_tf32_forward_counts_one_launch_a_direction():
+    """Both directions of a query call, each once: LAUNCHES and
+    SHAPE_LAUNCHES count one f32 forward a direction (the row pass and the
+    main kernel are one launch of the counter), nothing in the bf16 mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from demovlp_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    vid, txt, vmask = _inputs(40, 24, 240, 99, 256, seed=4, device=dev)
+    tmask = torch.zeros(24, 99, device=dev)
+    xk.reset_launch_counts()
+    xk.direction_sim(vid, txt, vmask, 20.0, False)
+    xk.direction_sim(txt, vid, tmask, 20.0, False)
+    torch.cuda.synchronize()
+    assert xk.LAUNCHES == {xk.KERNEL: 2, xk.KERNEL_BF16: 0, xk.KERNEL_DQ: 0, xk.KERNEL_DC: 0}
+    assert xk.SHAPE_LAUNCHES == {(xk.KERNEL, 240, 99): 1, (xk.KERNEL, 99, 240): 1}
 
 
 def _train_like_inputs(bc, bq, ls, lq, d, seed, device):

@@ -5,7 +5,9 @@ emulating them in torch.
   xattn_sim_fwd_tf32_kernel) takes each product as 3xTF32: every f32
   operand x is split into hi = tf32(x) and lo = tf32(x - hi), rounded as
   cvt.rna.tf32.f32 rounds (to nearest, ties away from zero), and
-  a b = a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 sums. Here the plain
+  a b = a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 sums. Its row pass
+  (l2norm_rows_tf32_kernel) splits each normalised row once; the kernel's
+  order is per 8-deep k step, the three passes in that order. Here the plain
   version `direction_sim_plain` runs with its two products emulated that
   way (torch.einsum patched for the test), and must stay within 1e-6 of the
   f32 plain version's largest sim at the serving and training shapes,
@@ -158,6 +160,73 @@ def test_1xtf32_sims_miss_the_f32_gate(monkeypatch):
             got = _sims(ls, lq, focal, 0, einsum_1xtf32, monkeypatch)
             errs.append(float((got - want).abs().max()) / float(want.abs().max()))
     assert max(errs) > F32_GATE, errs
+
+
+def _normalised_rows(n, length, d, seed):
+    """Rows as the f32 row pass writes them before its split: x / (|x| + eps)."""
+    x = torch.from_numpy(np.random.RandomState(seed).randn(n * length, d).astype(np.float32))
+    return x / (x.norm(dim=-1, keepdim=True) + 1e-8)
+
+
+def _kernel_order_3xtf32(a_split, b_split, step=8):
+    """a (M, K) b (N, K)^T as the f32 kernel accumulates it, from hi and lo
+    parts given as (hi, lo) pairs: for each 8-deep k step, a_lo b_hi, then
+    a_hi b_lo, then a_hi b_hi added to an f32 accumulator (each step's
+    products summed exactly, in float64, and rounded once)."""
+    (ah, al), (bh, bl) = a_split, b_split
+    acc = torch.zeros(ah.shape[0], bh.shape[0])
+    for k in range(0, ah.shape[1], step):
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = acc + _EINSUM("mk,nk->mn", x[:, k:k + step].double(),
+                                y[:, k:k + step].double()).float()
+    return acc
+
+
+def _split_per_fragment(x, step=8):
+    """The split the kernel took before its row pass: each 8-deep chunk of
+    the f32 rows split into hi and lo as its fragments were read."""
+    parts = [split_tf32(x[:, k:k + step].contiguous()) for k in range(0, x.shape[1], step)]
+    return torch.cat([h for h, _ in parts], 1), torch.cat([lo for _, lo in parts], 1)
+
+
+@pytest.mark.parametrize("d", [20, 36, 256])
+def test_split_once_rows_give_the_per_fragment_products(d):
+    """The row pass splits each normalised row once (qn as product 1's A,
+    cn as its B and, transposed, as product 2's B); the kernel before it
+    split the same f32 values chunk by chunk as it read them. The parts are
+    the same bits, so every product, in the kernel's pass order, is too."""
+    qn = _normalised_rows(3, 99, d, seed=d)
+    cn = _normalised_rows(2, 240, d, seed=d + 1)
+    once_q, once_c = split_tf32(qn), split_tf32(cn)
+    for once, x in ((once_q, qn), (once_c, cn)):
+        for a, b in zip(once, _split_per_fragment(x)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    got = _kernel_order_3xtf32(once_q, once_c)
+    want = _kernel_order_3xtf32(_split_per_fragment(qn), _split_per_fragment(cn))
+    assert torch.equal(got, want)
+    # product 2's B is cn transposed: the same split values, read by s
+    cnt = split_tf32(cn.T.contiguous())
+    assert all(torch.equal(a, b.T) for a, b in zip(cnt, once_c))
+
+
+@pytest.mark.parametrize("d", [20, 36, 256])
+def test_kernel_pass_order_lands_within_the_gate(d):
+    """The kernel's order (per 8-deep k step: a_lo b_hi, a_hi b_lo, a_hi
+    b_hi, f32 accumulation) on split-once rows lands within the 3xTF32 gate
+    of the exact product, and within a few f32 roundings of the emulated
+    plain version's order (each pass summed over all of D first); the
+    product without its lo passes misses the gate by far."""
+    qn = _normalised_rows(1, 99, d, seed=2 * d)
+    cn = _normalised_rows(1, 240, d, seed=2 * d + 1)
+    exact = _EINSUM("ld,sd->ls", qn.double(), cn.double())
+    scale = float(exact.abs().max())
+    got = _kernel_order_3xtf32(split_tf32(qn), split_tf32(cn))
+    assert float((got.double() - exact).abs().max()) / scale <= SIM_GATE
+    plain = einsum_3xtf32("ld,sd->ls", qn, cn)
+    assert float((got - plain).abs().max()) / scale <= 1e-6
+    (qh, _), (ch, _) = split_tf32(qn), split_tf32(cn)
+    hi_only = _kernel_order_3xtf32((qh, torch.zeros_like(qh)), (ch, torch.zeros_like(ch)))
+    assert float((hi_only.double() - exact).abs().max()) / scale > 10 * SIM_GATE
 
 
 def two_pass_attention(q, k, v, bias):
