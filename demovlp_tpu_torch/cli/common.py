@@ -43,8 +43,9 @@ from demovlp_tpu_torch.losses.losses import (CrossEntropy, GlobalLocalLoss,
                                              MaxMarginRankingLoss, NormSoftmaxLoss, RWALoss)
 from demovlp_tpu_torch.metrics import qa as qa_metrics
 from demovlp_tpu_torch.metrics import retrieval as retrieval_metrics
-from demovlp_tpu_torch.models import (DistilBertConfig, ObjectMCRelation, ObjectQARelation,
-                                      ObjectRelation)
+from demovlp_tpu_torch.models import (DistilBertConfig, FrozenInTime, ObjectMCRelation,
+                                      ObjectQARelation, ObjectRelation)
+from demovlp_tpu_torch.models.frozen import ARCH_CONFIGS
 from demovlp_tpu_torch.ops.xattn_kernel import check_backend
 from demovlp_tpu_torch.parallel.mesh import (create_mesh, data_coords, host_allgather_pylist,
                                              is_main_process, process_count,
@@ -121,18 +122,50 @@ def norm_dtype(config: Dict[str, Any]) -> torch.dtype:
     return _precision(config, "norm")
 
 
-_ARCHS = {cls.__name__: cls for cls in (ObjectRelation, ObjectQARelation, ObjectMCRelation)}
+_ARCHS = {cls.__name__: cls for cls in (ObjectRelation, ObjectQARelation, ObjectMCRelation,
+                                         FrozenInTime)}
+
+
+def _build_frozen(config: Dict[str, Any]) -> FrozenInTime:
+    """FrozenInTime from Frozen's `video_params`: `num_frames`, the
+    `arch_config` name (widths of ARCH_CONFIGS, default base_patch16_224),
+    each width overridable by `patch_size`, `resolution`, `embed_dim`,
+    `depth` or `heads`. Its attention is the grouped form; `attn_impl`, if
+    given, must say so ("xla")."""
+    args = config["arch"].get("args", {})
+    vid = args.get("video_params", {})
+    name = vid.get("arch_config", "base_patch16_224")
+    if name not in ARCH_CONFIGS:
+        raise NotImplementedError(f"video_params.arch_config {name!r}: expected one of "
+                                  f"{sorted(ARCH_CONFIGS)}")
+    patch, res, dim, depth, heads = ARCH_CONFIGS[name]
+    if vid.get("attn_impl", "xla") != "xla":
+        raise ValueError(f"video_params.attn_impl {vid['attn_impl']!r}: FrozenInTime runs the "
+                         "grouped form ('xla'), not masked full attention over every token")
+    txt = args.get("text_params", {})
+    return FrozenInTime(
+        num_frames=int(vid.get("num_frames", 4)), resolution=int(vid.get("resolution", res)),
+        patch_size=int(vid.get("patch_size", patch)), embed_dim=int(vid.get("embed_dim", dim)),
+        depth=int(vid.get("depth", depth)), num_heads=int(vid.get("heads", heads)),
+        projection_dim=int(args.get("projection_dim", 256)),
+        text_config=DistilBertConfig(**txt["config"]) if txt.get("config") else DistilBertConfig(),
+        compute_dtype=compute_dtype(config), norm_dtype=norm_dtype(config))
 
 
 def build_model(config: Dict[str, Any]) -> ObjectRelation:
     """The arch from its config section, with the nested
-    object_params/text_params flattened as the JAX package does;
+    object_params/text_params flattened as the JAX package does
+    (FrozenInTime from its video_params: `_build_frozen`);
     `num_label` and `head_dropout` go to the QA arch only. `mlm.weight` > 0
     adds the MLM head (retrieval archs); the top-level `remat` recomputes
     the region tower's blocks in the backward."""
     arch = config["arch"]
     if arch["type"] not in _ARCHS:
         raise NotImplementedError(f"arch {arch['type']!r} is not ported")
+    if arch["type"] == "FrozenInTime":
+        if config.get("remat") or float((config.get("mlm", {}) or {}).get("weight", 0.0)) > 0:
+            raise ValueError("FrozenInTime takes neither remat nor mlm.weight")
+        return _build_frozen(config)
     args = arch.get("args", {})
     obj_p = args.get("object_params", {})
     txt_p = args.get("text_params", {})

@@ -69,7 +69,14 @@ def _task_fields(batch: Dict[str, Any], items: List[Dict[str, Any]]) -> Dict[str
 
 
 def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Stack per-sample dicts into a fixed-shape numpy batch."""
+    """Stack per-sample dicts into a fixed-shape numpy batch: region
+    features and masks as float32, or raw frames (`video`) as uint8."""
+    if "video" in items[0]:
+        return _task_fields({
+            "video": np.stack([it["video"] for it in items]),
+            "text": [it["text"] for it in items],
+            "meta": [it["meta"] for it in items],
+        }, items)
     return _task_fields({
         "object": np.stack([it["object"] for it in items]).astype(np.float32),
         "object_mask": np.stack([it["object_mask"] for it in items]).astype(np.float32),
@@ -279,9 +286,11 @@ class RegionDataLoader:
 
 
 class MultiDistTextObjectVideoDataLoader(RegionDataLoader):
-    """Config-surface constructor (the JAX package's kwargs)."""
+    """Config-surface constructor (the JAX package's kwargs; `video_params`
+    goes to a pixel dataset, data/datasets/pixels.py)."""
 
-    def __init__(self, dataset_name: str, text_params: dict, object_params: dict,
+    def __init__(self, dataset_name: str, text_params: dict,
+                 object_params: Optional[dict] = None, video_params: Optional[dict] = None,
                  data_dir: str = "", object_dir: str = "", metadata_dir: Optional[str] = None,
                  split: str = "train", tsfm_params: Optional[dict] = None,
                  cut: Optional[str] = None, subsample: float = 1,
@@ -290,8 +299,9 @@ class MultiDistTextObjectVideoDataLoader(RegionDataLoader):
                  seed: int = 0, length_grouped: bool | str = False,
                  text_buckets: Optional[Sequence[int]] = None,
                  process_index: Optional[int] = None, process_count: Optional[int] = None):
+        pixels = {} if video_params is None else {"video_params": video_params}
         dataset = dataset_object_loader(
-            dataset_name, text_params=text_params, object_params=object_params,
+            dataset_name, text_params=text_params, object_params=object_params, **pixels,
             data_dir=data_dir, object_dir=object_dir, metadata_dir=metadata_dir, split=split,
             tsfms=init_transform_dict(**(tsfm_params or {})).get(split), cut=cut,
             subsample=subsample, sliding_window_stride=sliding_window_stride, reader=reader,

@@ -2,7 +2,8 @@ from demovlp_tpu_torch.models.distilbert import DistilBertConfig, DistilBertMode
 from demovlp_tpu_torch.models.dual_encoder import (ObjectMCRelation, ObjectQARelation,
                                                    ObjectRelation)
 from demovlp_tpu_torch.models.feature_extractor import PatchRegionExtractor
+from demovlp_tpu_torch.models.frozen import FrozenInTime
 from demovlp_tpu_torch.models.object_transformer import ObjectTransformer
 
-__all__ = ["DistilBertConfig", "DistilBertModel", "ObjectMCRelation", "ObjectQARelation",
-           "ObjectRelation", "ObjectTransformer", "PatchRegionExtractor"]
+__all__ = ["DistilBertConfig", "DistilBertModel", "FrozenInTime", "ObjectMCRelation",
+           "ObjectQARelation", "ObjectRelation", "ObjectTransformer", "PatchRegionExtractor"]

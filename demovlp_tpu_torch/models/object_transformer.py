@@ -25,7 +25,7 @@ with time attention, norm3, where JAX passes its `norm_dtype`).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from demovlp_tpu_torch.models.layers import Dense, LayerNormFp32, Mlp
 from demovlp_tpu_torch.ops.masking import additive_mask
+from demovlp_tpu_torch.utils import profiling
 
 APPEARANCE_DIM = 2048  # + 6-d box geometry = the 2054-d region feature
 GEOMETRY_DIM = 6
@@ -131,13 +132,17 @@ class VarAttention(nn.Module):
 
 
 class SpaceTimeBlock(nn.Module):
-    """Pre-norm block: [time attention] -> space attention -> MLP."""
+    """Pre-norm block: [time attention] -> space attention -> MLP.
+    `span_names` (time, space), where given, names a span around each
+    attention's forward and backward (utils/profiling.span_both_ways)."""
 
     def __init__(self, dim: int, num_heads: int, time_module: Optional[str] = None,
                  attn_impl: str = "dense",
                  compute_dtype: torch.dtype = torch.float32,
-                 norm_dtype: torch.dtype = torch.float32):
+                 norm_dtype: torch.dtype = torch.float32,
+                 span_names: Optional[Tuple[str, str]] = None):
         super().__init__()
+        self.span_names = span_names
         self.has_time = time_module == "timeattn"
         if self.has_time:
             self.norm3 = LayerNormFp32(dim, compute_dtype=norm_dtype)
@@ -147,13 +152,20 @@ class SpaceTimeBlock(nn.Module):
         self.norm2 = LayerNormFp32(dim, compute_dtype=norm_dtype)
         self.mlp = Mlp(dim, MLP_RATIO * dim, compute_dtype)
 
+    def _attend(self, which: int, attn, y, add_mask, mode: str, frames: int, patches: int):
+        if self.span_names is None:
+            return attn(y, add_mask, mode, frames, patches)
+        return profiling.span_both_ways(self.span_names[which], attn, y, add_mask, mode,
+                                        frames, patches)
+
     def forward(self, x, add_mask, frames: int, patches: int):
         if self.has_time:
-            t = self.timeattn(self.norm3(x), add_mask, "time", frames, patches)
+            t = self._attend(0, self.timeattn, self.norm3(x), add_mask, "time", frames, patches)
             time_residual = x + t
         else:
             time_residual = x
-        s = self.attn(self.norm1(time_residual), add_mask, "space", frames, patches)
+        s = self._attend(1, self.attn, self.norm1(time_residual), add_mask, "space", frames,
+                         patches)
         space_residual = x + s  # from the ORIGINAL x
         return space_residual + self.mlp(self.norm2(space_residual))
 

@@ -189,9 +189,11 @@ class RetrievalTrainer(BaseTrainer):
             total_val_loss += float(loss)
             n_batches += 1
             for k in EMBED_KEYS:
+                if OUT_KEYS[k] not in out:  # a global-only model's local keys
+                    continue
                 v = out[OUT_KEYS[k]]
                 arrs[k].append((v.float() if v.is_floating_point() else v).cpu().numpy()[keep])
-        cat = {k: np.concatenate(v, axis=0) for k, v in arrs.items()}
+        cat = {k: np.concatenate(v, axis=0) for k, v in arrs.items() if v}
         if self.mesh is not None:
             gather = data_allgather(self.mesh)
             cat = {k: host_allgather_ragged(v, gather) for k, v in cat.items()}
@@ -204,13 +206,16 @@ class RetrievalTrainer(BaseTrainer):
         res: Dict[str, Any] = {}
         nested: Dict[int, Dict[str, Any]] = {}
         loss_args = self.config["loss"].get("args", {})
-        local = self.loss.local_loss
+        # a global-only loss (NormSoftmaxLoss) scores eval by the global sims alone
+        local = getattr(self.loss, "local_loss", None)
+        knobs = ({"use_local": False} if local is None else
+                 {"use_local": bool(loss_args.get("use_local", True)),
+                  "lambda_softmax": local.lambda_softmax, "focal_type": local.focal_type})
         for dl_idx, dl in enumerate(self.valid_data_loader):
             metas: List[Dict[str, Any]] = []
             cat, res[f"val_loss_{dl_idx}"] = self.embed(dl, metas)
             sims = combined_sims(
-                cat, self.device, use_local=bool(loss_args.get("use_local", True)),
-                lambda_softmax=local.lambda_softmax, focal_type=local.focal_type,
+                cat, self.device, **knobs,
                 mscoco_dedup=str(self.config["name"]).startswith("MSCOCO"), mesh=self.mesh)
             dl_metrics = {}
             for metric in self.metrics:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from demovlp_tpu_torch.device import to_device
+from demovlp_tpu_torch.losses.losses import NormSoftmaxLoss
 from demovlp_tpu_torch.ops.masking import additive_mask
 from demovlp_tpu_torch.ops.similarity import sim_matrix
 from demovlp_tpu_torch.parallel.mesh import (all_reduce_max_int, all_reduce_sum, data_coords,
@@ -53,7 +54,8 @@ from demovlp_tpu_torch.utils import profiling
 
 def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100,
                   text_buckets=None):
-    """Tokenize the text and assemble the model's numpy array batch. A
+    """Tokenize the text and assemble the model's numpy array batch (the
+    regions and their mask, or a pixel batch's `video`). A
     multiple-choice item's option texts are flattened in order; a batch's
     labels are carried.
 
@@ -79,12 +81,12 @@ def prepare_batch(batch: Dict[str, Any], tokenizer, max_text_len: int = 100,
         if target < length:
             enc = {"input_ids": enc["input_ids"][:, :target],
                    "attention_mask": enc["attention_mask"][:, :target]}
-    arrays = {
-        "input_ids": enc["input_ids"],
-        "attention_mask": enc["attention_mask"],
-        "object": batch["object"],
-        "object_mask": batch["object_mask"],
-    }
+    arrays = {"input_ids": enc["input_ids"], "attention_mask": enc["attention_mask"]}
+    if "video" in batch:
+        arrays["video"] = batch["video"]
+    else:
+        arrays["object"] = batch["object"]
+        arrays["object_mask"] = batch["object_mask"]
     if "label" in batch:
         arrays["label"] = batch["label"]
     if "sample_valid" in batch:
@@ -116,15 +118,20 @@ def batch_to_device(arrays: Dict[str, np.ndarray], device: torch.device,
     """The model's batch on `device`. `transfer_dtype` (bf16 for a bf16
     model) casts the region tensor on the host before upload; the tower's
     first op casts to its compute dtype anyway, so this is bit-identical.
+    A pixel batch's `video` crosses as uint8 whatever the model's dtype:
+    the model normalises it on the card (models/frozen.py).
     Span `train.upload` (host cast, pin, copy enqueue), counter
     `train.upload_bytes` (the bytes of the tensors returned)."""
     with profiling.span("train.upload"):
         out = {
             "input_ids": to_device(arrays["input_ids"].astype(np.int64), device),
             "attention_mask": to_device(arrays["attention_mask"].astype(np.int64), device),
-            "object": to_device(arrays["object"], device, transfer_dtype),
-            "object_mask": to_device(arrays["object_mask"], device),
         }
+        if "video" in arrays:
+            out["video"] = to_device(arrays["video"], device)
+        else:
+            out["object"] = to_device(arrays["object"], device, transfer_dtype)
+            out["object_mask"] = to_device(arrays["object_mask"], device)
         if "valid" in arrays:
             out["valid"] = to_device(arrays["valid"], device)
         if "label" in arrays:
@@ -138,9 +145,14 @@ def batch_to_device(arrays: Dict[str, np.ndarray], device: torch.device,
 
 def retrieval_losses(loss_obj, outputs, batch, valid=None):
     """(total, global, local). The towers may run in bf16; the global sims
-    and both local embeddings enter the losses in f32."""
+    and both local embeddings enter the losses in f32. A NormSoftmaxLoss
+    (a global-only model: FrozenInTime) reads the global sims alone, and
+    its local loss is 0."""
     global_sim = sim_matrix(outputs["global_text_embeddings"].float(),
                             outputs["global_object_embeddings"].float())
+    if isinstance(loss_obj, NormSoftmaxLoss):
+        g = loss_obj(global_sim, valid)
+        return g, g, torch.zeros((), dtype=g.dtype, device=g.device)
     text_mask = additive_mask(batch["attention_mask"][:, 1:])
     text_len = torch.sum(batch["attention_mask"], dim=1)
     return loss_obj(
@@ -161,8 +173,10 @@ def _global_batch(out, batch, group, valid=None):
     out = dict(out)
     for k in ("global_text_embeddings", "global_object_embeddings",
               "local_object_embeddings", "local_text_embeddings"):
-        out[k] = gather_rows(out[k].float(), group)
-    out["object_mask"] = gather_rows(out["object_mask"], group)
+        if k in out:  # a global-only model has no local embeddings
+            out[k] = gather_rows(out[k].float(), group)
+    if "object_mask" in out:
+        out["object_mask"] = gather_rows(out["object_mask"], group)
     batch = {"attention_mask": gather_rows(batch["attention_mask"], group)}
     return out, batch, (None if valid is None else gather_rows(valid, group))
 

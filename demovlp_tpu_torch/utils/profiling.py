@@ -15,6 +15,8 @@ enters `torch.profiler.record_function`, so the session's Chrome trace
 holds it as a `user_annotation` event on the trace's clock. `recorded()`
 returns what was kept, `clear()` empties it; `trace()` clears it when it
 opens and writes `spans.json` beside `trace.json` when it closes.
+`span_both_ways` spans a block's forward and, on the thread that runs it,
+its backward under one name.
 """
 from __future__ import annotations
 
@@ -167,6 +169,64 @@ def count(name: str, n: float) -> None:
     to the total), only while a profiler session runs."""
     if _torch_profiler_state._is_profiler_enabled:
         _RECORDER.count(name, n)
+
+
+class _Pending:
+    """The span a backward opened, handed to the backward that closes it."""
+    __slots__ = ("span",)
+
+    def __init__(self):
+        self.span = None
+
+
+class _OpenInBackward(torch.autograd.Function):
+    """Identity on a block's output; its backward, the first of the
+    block's to run, opens the span."""
+
+    @staticmethod
+    def forward(ctx, y, pending, name):
+        ctx.pending, ctx.name = pending, name
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.pending.span = span(ctx.name)
+        ctx.pending.span.__enter__()
+        return grad, None, None
+
+
+class _CloseInBackward(torch.autograd.Function):
+    """Identity on a block's input; its backward, the last of the block's
+    to run, closes the span."""
+
+    @staticmethod
+    def forward(ctx, x, pending):
+        ctx.pending = pending
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        opened, ctx.pending.span = ctx.pending.span, None
+        if opened is not None:
+            opened.__exit__(None, None, None)
+        return grad, None
+
+
+def span_both_ways(name: str, fn, x: torch.Tensor, *args):
+    """`fn(x, *args)` inside span `name`, and its backward inside a span
+    of the same name (on the thread that runs the backward), so the
+    kernels of both directions can be attributed to the block. Only while
+    a profiler session runs; otherwise a plain call. The backward's span
+    opens at the gradient of the output and closes at the gradient of `x`,
+    so it needs `x` to require grad (else only the forward is spanned)."""
+    if not _torch_profiler_state._is_profiler_enabled:
+        return fn(x, *args)
+    with _Span(name):
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return fn(x, *args)
+        pending = _Pending()
+        y = fn(_CloseInBackward.apply(x, pending), *args)
+        return _OpenInBackward.apply(y, pending, name)
 
 
 def recorded() -> Dict[str, Any]:
